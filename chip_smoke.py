@@ -1,0 +1,581 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own line; any failure exits non-zero before
+the result line:
+  1. device  — a CUDA device must exist; prints its name and power limit;
+  2. build   — compiles every kernel under src/repro_torch/csrc (nvcc);
+  3. kernels — each kernel against its plain PyTorch version on the card:
+               float32 at the reference's test shapes (3e-5), bfloat16 at
+               the serving path's shapes (3e-2, and per output row 1e-2 of
+               the row's largest value, a limit that planted faults — one
+               key dropped, one key or page read from the wrong place —
+               must exceed), and unified_pd against flash_prefill +
+               paged_attention in float32 (1e-6) for several f_decode;
+               times each kernel, its plain version, one PyTorch library
+               call where one computes the same function, and the least
+               time the card could take (bound);
+  4. serve   — full-width granite-8b (36 layers, random seeded weights,
+               bf16) serves 8 requests through serve_real's loop; every
+               kernel must have launched, the KV pool must end reclaimed,
+               and the first prefill's and first concurrent step's logits
+               must agree between the kernel path and the plain path.
+The last two lines are the kernels' JSON record and the result line.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+import warnings
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.config import get_config  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_prefill as fp  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import unified_pd as up  # noqa: E402
+from repro_torch.kvcache import kv_pages_for  # noqa: E402
+from repro_torch.launch import serve_real  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+
+# H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SERVE = dict(requests=8, prompts=(128, 2048), new_tokens=(16, 64), slots=4,
+             page=16, f_decode=0.5, seed=0)
+DEVICE = "cuda"
+F_DECODES = (1.0, 0.5, 0.25, 0.1)
+TOL_F32, TOL_BF16, TOL_FUSED, TOL_LOGITS = 3e-5, 3e-2, 1e-6, 3e-2
+# bf16, per output row: max|kernel - plain| <= TOL_ROW * max|plain row|.
+# Kernel and plain version both compute in float32 from the same bf16
+# inputs and round once, so a sound kernel differs by at most one bf16 ulp,
+# which is at most 2^-7 = 7.8e-3 of the value.
+TOL_ROW = 1e-2
+SLEEP_CYCLES = 2_000_000      # about 1 ms of spinning at the H100's clock
+
+
+class PhaseFailed(Exception):
+    pass
+
+
+def say(tag, **kw):
+    print(f"[{tag}] " + json.dumps(kw, default=float), flush=True)
+
+
+def require(ok, what):
+    if not ok:
+        raise PhaseFailed(what)
+
+
+# ---------------------------------------------------------------------------
+# inputs, errors, timing, bounds
+# ---------------------------------------------------------------------------
+
+
+def randn(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def tables(gen, B, N, max_pages):
+    return torch.stack([torch.randperm(N, generator=gen, device=DEVICE)
+                        [:max_pages] for _ in range(B)]).int()
+
+
+def excess(got, want, tol):
+    """max(|got - want| - tol * (1 + |want|)): <= 0 is within atol=rtol=tol
+    (numpy allclose); also returns max |got - want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    over = (diff - tol * (1 + want.abs())).max().item()
+    return over, diff.max().item()
+
+
+def row_rel_err(got, want):
+    """Max over output rows (last dim) of max|got - want| / max|want|."""
+    got, want = got.float(), want.float()
+    D = want.shape[-1]
+    diff = (got - want).abs().reshape(-1, D).amax(1)
+    scale = want.abs().reshape(-1, D).amax(1).clamp_min(1e-30)
+    return (diff / scale).max().item()
+
+
+def time_ms(fn, iters=10):
+    """Mean device time of fn() in ms, each call timed alone by CUDA
+    events after a 64 MB write that evicts the 50 MB L2 cache.  A spin
+    kernel (``torch.cuda._sleep``) ahead of the start event keeps the card
+    busy while the host enqueues fn's launches, so the window holds device
+    time only; the spin doubles until the start event is still pending
+    once everything is enqueued."""
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=DEVICE)
+    fn()
+    cycles, total, n = SLEEP_CYCLES, 0.0, 0
+    while n < iters:
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        late = start.query()          # the spin ended before fn was queued
+        end.synchronize()
+        if late:
+            cycles *= 2
+            require(cycles < 1 << 32, "host enqueue outran a 2 s spin")
+            continue
+        total += start.elapsed_time(end)
+        n += 1
+    return total / iters
+
+
+def bound_ms(nbytes, flops, dtype):
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def prefill_work(q, k):
+    """Bytes (q,k,v read once, o written once) and causal multiply-add
+    operations (2 per MAC) of q (B,Hq,S,D) against k (B,Hkv,S,D)."""
+    B, Hq, S, D = q.shape
+    pairs = B * Hq * S * (S + 1) // 2
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4 * pairs * D
+
+
+def decode_work(q, k_pages, lens):
+    """Bytes of q, o, the valid K/V rows, tables and lens, and the
+    operations of each query head against its sequence's valid keys."""
+    B, Hq, D = q.shape
+    Hkv = k_pages.shape[2]
+    tokens = int(lens.sum())
+    nbytes = (2 * q.numel() + 2 * tokens * Hkv * D) * q.element_size() \
+        + 4 * (B + B * -(-int(lens.max()) // k_pages.shape[1]))
+    return nbytes, 4 * tokens * Hq * D
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [(2, 4, 2, 128, 32, None), (1, 8, 2, 257, 64, None),
+                (2, 4, 4, 256, 32, 96), (1, 2, 1, 64, 16, None),
+                (1, 4, 1, 96, 32, 32)]
+PAGED_SHAPES = [(2, 4, 2, 32, 8, 4, 16), (3, 8, 4, 64, 16, 6, 32),
+                (1, 4, 1, 16, 8, 3, 8), (4, 2, 2, 32, 4, 5, 24)]
+UNIFIED_SHAPES = [(1, 2, 4, 2, 128, 32, 8, 4, 16, 0.5, None),
+                  (2, 3, 4, 4, 64, 16, 8, 3, 12, 0.25, None),
+                  (1, 2, 8, 2, 96, 32, 16, 2, 8, 1.0, 48),
+                  (2, 1, 4, 2, 64, 32, 8, 2, 8, 0.1, None)]
+
+
+def prefill_inputs(gen, B, Hq, Hkv, S, D, dtype):
+    return (randn(gen, B, Hq, S, D, dtype=dtype),
+            randn(gen, B, Hkv, S, D, dtype=dtype),
+            randn(gen, B, Hkv, S, D, dtype=dtype))
+
+
+def decode_inputs(gen, lens, Hq, Hkv, D, page, dtype, spare_pages=4):
+    """q, pages and scattered block tables for sequences of ``lens``."""
+    B = len(lens)
+    mp = -(-max(lens) // page)
+    N = B * mp + spare_pages
+    return (randn(gen, B, Hq, D, dtype=dtype),
+            randn(gen, N, page, Hkv, D, dtype=dtype),
+            randn(gen, N, page, Hkv, D, dtype=dtype),
+            tables(gen, B, N, mp),
+            torch.tensor(lens, dtype=torch.int32, device=DEVICE))
+
+
+def check_f32_test_shapes(gen):
+    worst = {"flash_prefill": 0.0, "paged_attention": 0.0, "unified_pd": 0.0}
+    for B, Hq, Hkv, S, D, win in FLASH_SHAPES:
+        q, k, v = prefill_inputs(gen, B, Hq, Hkv, S, D, torch.float32)
+        over, err = excess(fp.flash_prefill(q, k, v, window=win),
+                           ref.causal_attention(q, k, v, window=win),
+                           TOL_F32)
+        require(over <= 0, f"flash_prefill f32 {B, Hq, Hkv, S, D, win}: "
+                f"max err {err}")
+        worst["flash_prefill"] = max(worst["flash_prefill"], err)
+    page_cases = [(B, Hq, Hkv, D, pg, mp, N, None)
+                  for B, Hq, Hkv, D, pg, mp, N in PAGED_SHAPES]
+    page_cases.append((2, 4, 2, 32, 8, 3, 8, [1, 24]))      # len == 1
+    for B, Hq, Hkv, D, page, mp, N, lens in page_cases:
+        q = randn(gen, B, Hq, D)
+        kp, vp = randn(gen, N, page, Hkv, D), randn(gen, N, page, Hkv, D)
+        tabs = tables(gen, B, N, mp)
+        lens = torch.tensor(lens, device=DEVICE, dtype=torch.int32) \
+            if lens else torch.randint(1, mp * page + 1, (B,), generator=gen,
+                                       device=DEVICE, dtype=torch.int32)
+        over, err = excess(pa.paged_attention(q, kp, vp, tabs, lens),
+                           ref.paged_attention(q, kp, vp, tabs, lens),
+                           TOL_F32)
+        require(over <= 0, f"paged_attention f32 {B, Hq, Hkv, D, page}: "
+                f"max err {err}")
+        worst["paged_attention"] = max(worst["paged_attention"], err)
+    for Bp, Bd, Hq, Hkv, Sp, D, page, mp, N, f, win in UNIFIED_SHAPES:
+        qp, kp_, vp_ = prefill_inputs(gen, Bp, Hq, Hkv, Sp, D, torch.float32)
+        qd = randn(gen, Bd, Hq, D)
+        kpg, vpg = randn(gen, N, page, Hkv, D), randn(gen, N, page, Hkv, D)
+        tabs = tables(gen, Bd, N, mp)
+        lens = torch.randint(1, mp * page + 1, (Bd,), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+        args = (qp, kp_, vp_, qd, kpg, vpg, tabs, lens)
+        op, od = up.unified_pd(*args, f_decode=f, window=win)
+        rp, rd = ref.unified_pd(*args, window=win)
+        for got, want in ((op, rp), (od, rd)):
+            over, err = excess(got, want, TOL_F32)
+            require(over <= 0, f"unified_pd f32 {Bp, Bd, Hq, Sp, f, win}: "
+                    f"max err {err}")
+            worst["unified_pd"] = max(worst["unified_pd"], err)
+    return worst
+
+
+def main_path_shapes(cfg, reqs):
+    """The attention shapes the serving run gives each kernel: the first
+    prefill; a full decode batch of 4 slots; the concurrent step that
+    admits request 4 while requests 1-3 decode."""
+    plen = [len(r.prompt) for r in reqs]
+    return {"prefill_S": plen[0],
+            "decode_lens": [n + 8 for n in plen[:4]],
+            "fused_S": plen[4],
+            "fused_lens": [n + 8 for n in plen[1:4]],
+            "Hq": cfg.num_heads, "Hkv": cfg.num_kv_heads, "D": cfg.head_dim,
+            "page": SERVE["page"]}
+
+
+def prefill_faults(q, k, v):
+    """The plain prefill under planted faults: the last key never read;
+    key BK (the first of the second k-block) read as key BK-1."""
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 64], v2[:, :, 64] = k[:, :, 63], v[:, :, 63]
+    return {"last_key_dropped": ref.causal_attention(q, k[:, :, :-1],
+                                                     v[:, :, :-1]),
+            "key_64_read_as_63": ref.causal_attention(q, k2, v2)}
+
+
+def decode_faults(q, k_pages, v_pages, tabs, lens):
+    """The plain decode under planted faults: each sequence's last key
+    never read; its first page read from its second page's block."""
+    tabs2 = tabs.clone()
+    tabs2[:, 0] = tabs[:, 1]
+    return {"last_key_dropped": ref.paged_attention(q, k_pages, v_pages,
+                                                    tabs, lens - 1),
+            "page_0_read_as_page_1": ref.paged_attention(q, k_pages, v_pages,
+                                                         tabs2, lens)}
+
+
+def within_bf16(name, got, want, faults):
+    """Errors of ``got`` against ``want`` (a tensor or a tuple of them).
+    Fails the phase beyond atol=rtol=TOL_BF16, beyond TOL_ROW of any output
+    row, or when a planted fault (``faults``: name -> the plain outputs
+    under that fault) does not exceed TOL_ROW, i.e. would go unseen."""
+    def rows(a, b):
+        return max(row_rel_err(x, y) for x, y in zip(a, b))
+
+    got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+    abs_err = 0.0
+    for g, w in zip(got, want):
+        over, err = excess(g, w, TOL_BF16)
+        require(over <= 0, f"{name} bf16 max err {err}")
+        abs_err = max(abs_err, err)
+    row = rows(got, want)
+    require(row <= TOL_ROW, f"{name} bf16 row error {row} > {TOL_ROW}")
+    seen = {f: rows(out if isinstance(out, tuple) else (out,), want)
+            for f, out in faults.items()}
+    require(min(seen.values()) > TOL_ROW,
+            f"{name}: a planted fault stays within {TOL_ROW}: {seen}")
+    return {"max_abs_err": abs_err, "max_row_rel_err": row,
+            "fault_row_rel_err": seen}
+
+
+def kernel_record(check, run, plain, library, work, shape):
+    """``check``'s errors; times of the kernel, its plain version and the
+    library call (if any); and the bound of the work (bytes, operations)
+    in bf16."""
+    bound, by = bound_ms(*work, torch.bfloat16)
+    return {**check, "ms": time_ms(run), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library) if library else None,
+            "bound_ms": bound, "bound_by": by, "shape": shape}
+
+
+def check_main_path_shapes(gen, shapes):
+    """bf16 accuracy and timings at the serving shapes; the fused kernel
+    against the standalone kernels in f32.  Returns per-kernel records."""
+    Hq, Hkv, D, page = (shapes[k] for k in ("Hq", "Hkv", "D", "page"))
+    bf16, f_dec = torch.bfloat16, SERVE["f_decode"]
+    recs = {}
+
+    q, k, v = prefill_inputs(gen, 1, Hq, Hkv, shapes["prefill_S"], D, bf16)
+    recs["flash_prefill"] = kernel_record(
+        within_bf16("flash_prefill", fp.flash_prefill(q, k, v),
+                    ref.causal_attention(q, k, v), prefill_faults(q, k, v)),
+        lambda: fp.flash_prefill(q, k, v),
+        lambda: ref.causal_attention(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        prefill_work(q, k), f"q{list(q.shape)} k{list(k.shape)} bf16")
+
+    dec = decode_inputs(gen, shapes["decode_lens"], Hq, Hkv, D, page, bf16)
+    recs["paged_attention"] = kernel_record(
+        within_bf16("paged_attention", pa.paged_attention(*dec),
+                    ref.paged_attention(*dec), decode_faults(*dec)),
+        lambda: pa.paged_attention(*dec), lambda: ref.paged_attention(*dec),
+        None, decode_work(dec[0], dec[1], dec[4]),
+        f"q{list(dec[0].shape)} lens{shapes['decode_lens']} page {page} bf16")
+
+    def fused_args(dtype):
+        return (prefill_inputs(gen, 1, Hq, Hkv, shapes["fused_S"], D, dtype)
+                + decode_inputs(gen, shapes["fused_lens"], Hq, Hkv, D, page,
+                                dtype))
+
+    args = fused_args(bf16)
+    got, want = up.unified_pd(*args, f_decode=f_dec), ref.unified_pd(*args)
+    faults = {**{f"prefill_{n}": (o, want[1])
+                 for n, o in prefill_faults(*args[:3]).items()},
+              **{f"decode_{n}": (want[0], o)
+                 for n, o in decode_faults(*args[3:]).items()}}
+    check = within_bf16("unified_pd", got, want, faults)
+    pb, pf = prefill_work(args[0], args[1])
+    db, df = decode_work(args[3], args[4], args[7])
+    recs["unified_pd"] = kernel_record(
+        check, lambda: up.unified_pd(*args, f_decode=f_dec),
+        lambda: ref.unified_pd(*args), None, (pb + db, pf + df),
+        f"prefill q{list(args[0].shape)} + decode q{list(args[3].shape)} "
+        f"lens{shapes['fused_lens']} bf16")
+
+    # float32: the fused kernel == the standalone kernels, any f_decode
+    args = fused_args(torch.float32)
+    alone = (fp.flash_prefill(*args[:3]), pa.paged_attention(*args[3:]))
+    fused_err = 0.0
+    for f in F_DECODES:
+        for got, want in zip(up.unified_pd(*args, f_decode=f), alone):
+            over, err = excess(got, want, TOL_FUSED)
+            require(over <= 0, f"unified_pd != standalone at f_decode={f}: "
+                    f"max err {err}")
+            fused_err = max(fused_err, err)
+    recs["unified_pd"]["fused_vs_standalone_f32_max_err"] = fused_err
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serving at full width
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def first_steps_kernel_vs_plain(model, reqs, page):
+    """The run's first prefill (request 0) and first concurrent step
+    (prefill request 1 + decode request 0), through the kernel path and
+    the plain path on the same inputs and cache contents."""
+    cfg = model.cfg
+    r0, r1 = reqs[0], reqs[1]
+    n0 = len(r0.prompt)
+    blocks = kv_pages_for(n0 + 1, page)
+    cache = tf.init_cache(cfg, blocks, page, device=DEVICE)
+    tab = torch.arange(blocks, device=DEVICE, dtype=torch.int32)[None]
+    p0 = torch.tensor(r0.prompt[None], device=DEVICE)
+    pos0 = torch.arange(n0, device=DEVICE)[None]
+    lk, aux = tf.forward(model, p0, pos0, impl="kernel", return_aux=True,
+                         last_only=True)
+    lr = tf.forward(model, p0, pos0, impl="ref", last_only=True)
+    tf.write_prefill_to_cache(cache, aux, tab)
+    tok = tf.greedy_sample(lk, cfg.vocab_size)
+    lens = torch.tensor([n0], device=DEVICE, dtype=torch.int32)
+    p1 = torch.tensor(r1.prompt[None], device=DEVICE)
+    pos1 = torch.arange(len(r1.prompt), device=DEVICE)[None]
+    outs = {}
+    for impl in ("kernel", "ref"):
+        c = [{k: t.clone() for k, t in layer.items()} for layer in cache]
+        p_logits, _, d_logits, _ = tf.fused_pd_forward(
+            model, p1, pos1, tok, lens[:, None], c, tab, lens,
+            f_decode=SERVE["f_decode"], impl=impl)
+        outs[impl] = (p_logits, d_logits)
+    return {"first_prefill": rel_err(lk, lr),
+            "fused_prefill": rel_err(outs["kernel"][0], outs["ref"][0]),
+            "fused_decode": rel_err(outs["kernel"][1], outs["ref"][1])}
+
+
+def serve_full():
+    cfg = get_config("granite-8b")
+    t = time.perf_counter()
+    model = tf.init_model(cfg, seed=SERVE["seed"], device=DEVICE)
+    torch.cuda.synchronize()
+    say("serve", phase="init", config=cfg.name, layers=cfg.num_layers,
+        d_model=cfg.d_model, dtype=cfg.dtype,
+        weights_gb=sum(p.numel() * p.element_size()
+                       for p in model.parameters()) / 1e9,
+        init_s=time.perf_counter() - t)
+    # warm-up: two short requests exercise prefill, fused and decode steps
+    warm = serve_real.make_requests(cfg, 2, SERVE["seed"] + 1, (32, 64),
+                                    (3, 3))
+    serve_real.serve(model, warm, slots=SERVE["slots"], page=SERVE["page"],
+                     f_decode=SERVE["f_decode"])
+    reqs = serve_real.make_requests(cfg, SERVE["requests"], SERVE["seed"],
+                                    SERVE["prompts"], SERVE["new_tokens"])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    result = serve_real.serve(model, reqs, slots=SERVE["slots"],
+                              page=SERVE["page"], f_decode=SERVE["f_decode"])
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    summary = serve_real.summarize(result)
+    say("serve", phase="run", launches=launches, **summary,
+        prompt_lens=[len(r.prompt) for r in reqs],
+        max_new=[r.max_new for r in reqs])
+    require(summary["requests"] == SERVE["requests"], "not every request "
+            "was served")
+    require(all(len(r.tokens) == r.max_new and
+                all(0 <= x < cfg.vocab_size for x in r.tokens)
+                for r in result["requests"]), "bad generated tokens")
+    require(result["pool_reclaimed"], "KV pool not fully reclaimed")
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel never launched on the main path: {launches}")
+    errs = first_steps_kernel_vs_plain(model, reqs, SERVE["page"])
+    say("serve", phase="kernel_vs_plain_logits",
+        metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS, **errs)
+    require(all(e < TOL_LOGITS for e in errs.values()),
+            f"logits differ between kernel and plain paths: {errs}")
+    say("profile", **profile_serving(model, cfg))
+    return launches
+
+
+KERNEL_FAMILIES = {"flash_kernel": "flash_prefill",
+                   "paged_kernel": "paged_attention",
+                   "unified_kernel": "unified_pd"}
+MATMUL_MARKS = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
+
+
+def profile_serving(model, cfg):
+    """Device busy share, and device time by kernel family, of the first 3
+    requests of the serving stream run again under torch.profiler (whose
+    own host overhead lowers the busy share it reports)."""
+    from torch.profiler import ProfilerActivity, profile
+    reqs = serve_real.make_requests(cfg, SERVE["requests"], SERVE["seed"],
+                                    SERVE["prompts"], SERVE["new_tokens"])[:3]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")     # one warning per sync
+        t = time.perf_counter()
+        try:
+            result = serve_real.serve(model, reqs, slots=SERVE["slots"],
+                                      page=SERVE["page"],
+                                      f_decode=SERVE["f_decode"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host_top = [(e.key, e.count, e.self_cpu_time_total / 1e6)
+                for e in host_ops[:10]]
+    by_family, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = next((v for k, v in KERNEL_FAMILIES.items() if k in e.name),
+                   None)
+        if fam is None:
+            fam = "matmul" if any(m in e.name.lower()
+                                  for m in MATMUL_MARKS) else "other"
+        s = e.time_range.elapsed_us() / 1e6
+        by_family[fam] = by_family.get(fam, 0.0) + s
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + s
+    busy = sum(by_family.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    sync_msgs = [str(w.message) for w in syncs
+                 if "synchroniz" in str(w.message)]
+    return {"requests": len(reqs), "steps": result["steps"], "wall_s": wall,
+            "device_busy_s": busy,
+            "busy_share": busy / wall if busy else "not measured",
+            "device_s_by_family": by_family, "top_kernels_s": top,
+            "host_self_s_top": host_top, "host_syncs": len(sync_msgs),
+            "host_sync_kinds": sorted(set(m[:100] for m in sync_msgs))}
+
+
+# ---------------------------------------------------------------------------
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi gave nothing"
+    say("device", name=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), nvidia_smi=card,
+        torch=torch.__version__, cuda=torch.version.cuda)
+    try:
+        t = time.perf_counter()
+        libs = build.build_all()
+        say("build", seconds=time.perf_counter() - t,
+            libraries=sorted(p.name for p in libs.values()))
+
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        worst_f32 = check_f32_test_shapes(gen)
+        say("kernels", phase="f32_test_shapes", tolerance=TOL_F32,
+            max_abs_err=worst_f32)
+        cfg = get_config("granite-8b")
+        reqs = serve_real.make_requests(cfg, SERVE["requests"],
+                                        SERVE["seed"], SERVE["prompts"],
+                                        SERVE["new_tokens"])
+        shapes = main_path_shapes(cfg, reqs)
+        recs = check_main_path_shapes(gen, shapes)
+        say("kernels", phase="main_path_shapes", tolerance_bf16=TOL_BF16,
+            tolerance_bf16_row=TOL_ROW, tolerance_fused_f32=TOL_FUSED,
+            f_decodes=F_DECODES, **recs)
+        launches = serve_full()
+    except PhaseFailed as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+
+    sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                                 "src/repro/kernels/flash_prefill.py:113"),
+               "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                                   "src/repro/kernels/paged_attention.py:109"),
+               "unified_pd": ("src/repro_torch/csrc/unified_pd.cu",
+                              "src/repro/kernels/unified_pd.py:259")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        r = recs[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"],
+                        "max_row_rel_err": r["max_row_rel_err"],
+                        "fault_row_rel_err": r["fault_row_rel_err"],
+                        "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        "f32_test_shapes_max_abs_err": worst_f32[name]})
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
