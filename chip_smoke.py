@@ -8,22 +8,36 @@ the result line:
   1. device  — a CUDA device must exist; prints its name and power limit;
   2. build   — compiles every kernel under src/repro_torch/csrc (nvcc);
   3. kernels — each kernel against its plain PyTorch version on the card:
-               float32 at the reference's test shapes (3e-5), bfloat16 at
-               the serving path's shapes (3e-2, and per output row 1e-2 of
-               the row's largest value, a limit that planted faults — one
-               key dropped, one key or page read from the wrong place —
-               must exceed), and unified_pd against flash_prefill +
-               paged_attention in float32 (1e-6) for several f_decode;
-               times each kernel, its plain version, one PyTorch library
-               call where one computes the same function, and the least
-               time the card could take (bound);
+               float32 at the reference's test shapes (3e-5 for attention,
+               2e-4 for ssm_scan), bfloat16 at the serving path's attention
+               shapes (3e-2, and per output row 1e-2 of the row's largest
+               value, a limit that planted faults — one key dropped, one
+               key or page read from the wrong place — must exceed), and
+               unified_pd against flash_prefill + paged_attention in
+               float32 (1e-6) for several f_decode; times each kernel, its
+               plain version, one PyTorch library call where one computes
+               the same function, and the least time the card could take
+               (bound);
   4. serve   — full-width granite-8b (36 layers, random seeded weights,
-               bf16) serves 8 requests through serve_real's loop; every
-               kernel must have launched, the KV pool must end reclaimed,
-               and the first prefill's and first concurrent step's logits
-               must agree between the kernel path and the plain path.
+               bf16) serves 8 requests through serve_real's loop; exactly
+               its three attention kernels must have launched, the KV pool
+               and the decode slots must end reclaimed, and the first
+               prefill's and first concurrent step's logits must agree
+               between the kernel path and the plain path; a profiled
+               rerun of 3 requests gives the device busy share;
+  5. jamba   — one full-width Jamba-1.5-Large period (8 layers: 7 Mamba,
+               1 attention; dense FFNs in place of MoE; random seeded
+               weights, bf16).  The attention kernels at its shapes as in
+               phase 3 (64 query heads); ssm_scan against its plain version
+               at the scan inputs of the first prompt's first Mamba layer
+               (per output row 1e-3 of the row's largest value, which
+               planted faults must exceed), timed; then the same serving
+               run as phase 4, which must launch all four kernels, the
+               same kernel-vs-plain logits check, in bf16 (3e-2) and again
+               with float32 weights (1e-3), and the same profiled rerun.
 The last two lines are the kernels' JSON record and the result line.
 """
+import gc
 import json
 import os
 import subprocess
@@ -37,14 +51,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.config import get_config  # noqa: E402
+from repro_torch.config import get_config, replace  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import unified_pd as up  # noqa: E402
 from repro_torch.kvcache import kv_pages_for  # noqa: E402
 from repro_torch.launch import serve_real  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -54,11 +71,25 @@ SERVE = dict(requests=8, prompts=(128, 2048), new_tokens=(16, 64), slots=4,
 DEVICE = "cuda"
 F_DECODES = (1.0, 0.5, 0.25, 0.1)
 TOL_F32, TOL_BF16, TOL_FUSED, TOL_LOGITS = 3e-5, 3e-2, 1e-6, 3e-2
+# the Jamba period's kernel path against its plain path in float32: the
+# two differ only in summation order, far below one bf16 ulp (3.9e-3)
+TOL_LOGITS_F32 = 1e-3
 # bf16, per output row: max|kernel - plain| <= TOL_ROW * max|plain row|.
 # Kernel and plain version both compute in float32 from the same bf16
 # inputs and round once, so a sound kernel differs by at most one bf16 ulp,
 # which is at most 2^-7 = 7.8e-3 of the value.
 TOL_ROW = 1e-2
+# ssm_scan is float32 throughout (the reference's own scan tolerance at the
+# test shapes); at the serving shape each output row of y (one (b, t)) and
+# of the final state (one (b, d)) is held to TOL_SCAN_ROW of its largest
+# value.  Kernel and plain version differ only in rounding order (fused
+# multiply-adds, the order of the C sum), some 1e-6 of a value; a planted
+# fault moves a row by a sizeable share of it.
+TOL_SCAN, TOL_SCAN_ROW = 2e-4, 1e-3
+# Special-function results per clock per SM on compute capability 9.0
+# (exp2, the core of expf); NVIDIA CUDA C++ documentation, throughput of
+# native arithmetic instructions.
+SFU_PER_CLOCK_PER_SM = 16
 SLEEP_CYCLES = 2_000_000      # about 1 ms of spinning at the H100's clock
 
 
@@ -136,6 +167,20 @@ def time_ms(fn, iters=10):
     return total / iters
 
 
+def host_ms(fn, iters=3):
+    """Mean wall time of fn() in ms, host dispatch included, from an idle
+    card to its end.  For a function of more launches than the launch
+    queue holds (the plain scan: a dozen per timestep), where the host
+    waits on the card while it enqueues and no spin can run ahead."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / iters
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -176,6 +221,8 @@ UNIFIED_SHAPES = [(1, 2, 4, 2, 128, 32, 8, 4, 16, 0.5, None),
                   (2, 3, 4, 4, 64, 16, 8, 3, 12, 0.25, None),
                   (1, 2, 8, 2, 96, 32, 16, 2, 8, 1.0, 48),
                   (2, 1, 4, 2, 64, 32, 8, 2, 8, 0.1, None)]
+SSM_SHAPES = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 48, 4),
+              (1, 60, 40, 8)]          # (B, L, din, ds), the reference's
 
 
 def prefill_inputs(gen, B, Hq, Hkv, S, D, dtype):
@@ -196,8 +243,22 @@ def decode_inputs(gen, lens, Hq, Hkv, D, page, dtype, spare_pages=4):
             torch.tensor(lens, dtype=torch.int32, device=DEVICE))
 
 
+def scan_inputs(gen, B, L, din, ds):
+    """The reference's scan test inputs: xs, softplus dt, A < 0, B, C."""
+    return (randn(gen, B, L, din), F.softplus(randn(gen, B, L, din)),
+            -torch.exp(randn(gen, din, ds) * 0.3), randn(gen, B, L, ds),
+            randn(gen, B, L, ds))
+
+
 def check_f32_test_shapes(gen):
-    worst = {"flash_prefill": 0.0, "paged_attention": 0.0, "unified_pd": 0.0}
+    worst = {"flash_prefill": 0.0, "paged_attention": 0.0, "unified_pd": 0.0,
+             "ssm_scan": 0.0}
+    for shape in SSM_SHAPES:
+        args = scan_inputs(gen, *shape)
+        for got, want in zip(ss.ssm_scan(*args), ref.ssm_scan(*args)):
+            over, err = excess(got, want, TOL_SCAN)
+            require(over <= 0, f"ssm_scan f32 {shape}: max err {err}")
+            worst["ssm_scan"] = max(worst["ssm_scan"], err)
     for B, Hq, Hkv, S, D, win in FLASH_SHAPES:
         q, k, v = prefill_inputs(gen, B, Hq, Hkv, S, D, torch.float32)
         over, err = excess(fp.flash_prefill(q, k, v, window=win),
@@ -385,14 +446,15 @@ def first_steps_kernel_vs_plain(model, reqs, page):
     r0, r1 = reqs[0], reqs[1]
     n0 = len(r0.prompt)
     blocks = kv_pages_for(n0 + 1, page)
-    cache = tf.init_cache(cfg, blocks, page, device=DEVICE)
+    cache = tf.init_cache(cfg, blocks, page, 1, device=DEVICE)
     tab = torch.arange(blocks, device=DEVICE, dtype=torch.int32)[None]
+    slot = torch.zeros(1, device=DEVICE, dtype=torch.int64)
     p0 = torch.tensor(r0.prompt[None], device=DEVICE)
     pos0 = torch.arange(n0, device=DEVICE)[None]
     lk, aux = tf.forward(model, p0, pos0, impl="kernel", return_aux=True,
                          last_only=True)
     lr = tf.forward(model, p0, pos0, impl="ref", last_only=True)
-    tf.write_prefill_to_cache(cache, aux, tab)
+    tf.write_prefill_to_cache(cache, aux, tab, slot)
     tok = tf.greedy_sample(lk, cfg.vocab_size)
     lens = torch.tensor([n0], device=DEVICE, dtype=torch.int32)
     p1 = torch.tensor(r1.prompt[None], device=DEVICE)
@@ -401,7 +463,7 @@ def first_steps_kernel_vs_plain(model, reqs, page):
     for impl in ("kernel", "ref"):
         c = [{k: t.clone() for k, t in layer.items()} for layer in cache]
         p_logits, _, d_logits, _ = tf.fused_pd_forward(
-            model, p1, pos1, tok, lens[:, None], c, tab, lens,
+            model, p1, pos1, tok, lens[:, None], c, tab, lens, slot,
             f_decode=SERVE["f_decode"], impl=impl)
         outs[impl] = (p_logits, d_logits)
     return {"first_prefill": rel_err(lk, lr),
@@ -409,23 +471,77 @@ def first_steps_kernel_vs_plain(model, reqs, page):
             "fused_decode": rel_err(outs["kernel"][1], outs["ref"][1])}
 
 
-def serve_full():
-    cfg = get_config("granite-8b")
+def logits_fault(model, prompt):
+    """How far a planted scan fault moves the prompt's last logits on the
+    plain path: the plain scan of the first Mamba layer skips the update
+    of the last timestep (dt = 0 there), as a kernel whose loop ends one
+    step early would.  A limit on kernel-vs-plain logits that this stays
+    within could not see such a kernel."""
+    pos = torch.arange(len(prompt), device=DEVICE)[None]
+    toks = torch.tensor(prompt[None], device=DEVICE)
+    sound = tf.forward(model, toks, pos, impl="ref", last_only=True)
+    scan, calls = ref.ssm_scan, []
+
+    def skip_last_update(xs, dt, A, Bm, Cm):
+        if not calls:
+            dt = dt.clone()
+            dt[:, -1] = 0
+        calls.append(1)
+        return scan(xs, dt, A, Bm, Cm)
+
+    ref.ssm_scan = skip_last_update
+    try:
+        faulted = tf.forward(model, toks, pos, impl="ref", last_only=True)
+    finally:
+        ref.ssm_scan = scan
+    require(len(calls) == sum(b.kind == "mamba" for b in model.layers),
+            "the planted fault did not reach the plain scan")
+    return rel_err(faulted, sound)
+
+
+def path_kernels(cfg):
+    """The kernels a serving run of ``cfg`` launches: the three attention
+    kernels, and ssm_scan when it has Mamba layers."""
+    kinds = {cfg.mixer_at(i) for i in range(cfg.num_layers)}
+    names = set()
+    if "attn" in kinds:
+        names |= {"flash_prefill", "paged_attention", "unified_pd"}
+    if "mamba" in kinds:
+        names.add("ssm_scan")
+    return names
+
+
+def serving_requests(cfg):
+    return serve_real.make_requests(cfg, SERVE["requests"], SERVE["seed"],
+                                    SERVE["prompts"], SERVE["new_tokens"])
+
+
+def init_full(cfg):
+    """Random weights of ``cfg``, in its dtype, on the card from a seeded
+    generator."""
     t = time.perf_counter()
     model = tf.init_model(cfg, seed=SERVE["seed"], device=DEVICE)
     torch.cuda.synchronize()
     say("serve", phase="init", config=cfg.name, layers=cfg.num_layers,
+        layer_pattern=cfg.layer_pattern, ffn_pattern=cfg.ffn_pattern,
         d_model=cfg.d_model, dtype=cfg.dtype,
         weights_gb=sum(p.numel() * p.element_size()
                        for p in model.parameters()) / 1e9,
         init_s=time.perf_counter() - t)
+    return model
+
+
+def serve_full(model):
+    """The serving run: 8 requests after a warm-up, with the launch counts
+    of the run alone; then kernel path against plain path.  Returns the
+    launch counts."""
+    cfg = model.cfg
     # warm-up: two short requests exercise prefill, fused and decode steps
     warm = serve_real.make_requests(cfg, 2, SERVE["seed"] + 1, (32, 64),
                                     (3, 3))
     serve_real.serve(model, warm, slots=SERVE["slots"], page=SERVE["page"],
                      f_decode=SERVE["f_decode"])
-    reqs = serve_real.make_requests(cfg, SERVE["requests"], SERVE["seed"],
-                                    SERVE["prompts"], SERVE["new_tokens"])
+    reqs = serving_requests(cfg)
     torch.cuda.synchronize()
     ops.reset_launches()
     result = serve_real.serve(model, reqs, slots=SERVE["slots"],
@@ -433,7 +549,7 @@ def serve_full():
     torch.cuda.synchronize()
     launches = ops.launches()
     summary = serve_real.summarize(result)
-    say("serve", phase="run", launches=launches, **summary,
+    say("serve", phase="run", config=cfg.name, launches=launches, **summary,
         prompt_lens=[len(r.prompt) for r in reqs],
         max_new=[r.max_new for r in reqs])
     require(summary["requests"] == SERVE["requests"], "not every request "
@@ -442,20 +558,109 @@ def serve_full():
                 all(0 <= x < cfg.vocab_size for x in r.tokens)
                 for r in result["requests"]), "bad generated tokens")
     require(result["pool_reclaimed"], "KV pool not fully reclaimed")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel never launched on the main path: {launches}")
+    require(result["state_slots_reclaimed"], "decode slots not reclaimed")
+    launched = {k for k, n in launches.items() if n > 0}
+    require(launched == path_kernels(cfg),
+            f"{cfg.name}: launched {sorted(launched)}, its path runs "
+            f"{sorted(path_kernels(cfg))}: {launches}")
     errs = first_steps_kernel_vs_plain(model, reqs, SERVE["page"])
-    say("serve", phase="kernel_vs_plain_logits",
+    say("serve", phase="kernel_vs_plain_logits", config=cfg.name,
         metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS, **errs)
     require(all(e < TOL_LOGITS for e in errs.values()),
             f"logits differ between kernel and plain paths: {errs}")
-    say("profile", **profile_serving(model, cfg))
     return launches
+
+
+def jamba_period():
+    """One full-width Jamba-1.5-Large period without experts.  Two cuts of
+    the published model: depth 72 -> 8 (one whole period: 7 Mamba layers
+    and the attention layer at position 4), and the MoE FFN of odd layers
+    -> Jamba's dense FFN (d_ff 24576) on every layer; one full-width MoE
+    layer would be 19.3 GB of bf16 experts.  9.0 B parameters, 18 GB."""
+    return replace(get_config("jamba-1.5-large-398b"), num_layers=8,
+                   ffn_pattern=("dense",))
+
+
+def first_scan_inputs(model, prompt):
+    """The scan inputs of ``prompt`` at the model's first layer, a Mamba
+    layer, through ``mamba.scan_args`` as the prefill computes them: xs, dt,
+    A, Bm, Cm."""
+    cfg, blk = model.cfg, model.layers[0]
+    require(blk.kind == "mamba", f"{cfg.name}: layer 0 is not Mamba")
+    x = embed_tokens(model, torch.tensor(prompt[None], device=DEVICE))
+    xz = rmsnorm(x, blk.norm1, cfg.norm_eps) @ blk.mixer.in_proj
+    return mamba_mod.scan_args(blk.mixer, cfg, xz)
+
+
+def scan_faults(xs, dt, A, Bm, Cm, y):
+    """The plain scan under planted faults at t = L/2: that step's update
+    skipped (dt = 0 there: decay 1, input 0); the state reset to zero
+    before it; and the final state taken one step early (``y`` is the
+    sound plain output)."""
+    m = xs.shape[1] // 2
+    dt2 = dt.clone()
+    dt2[:, m] = 0
+    y0, _ = ref.ssm_scan(xs[:, :m], dt[:, :m], A, Bm[:, :m], Cm[:, :m])
+    y1, h1 = ref.ssm_scan(xs[:, m:], dt[:, m:], A, Bm[:, m:], Cm[:, m:])
+    _, h_early = ref.ssm_scan(xs[:, :-1], dt[:, :-1], A, Bm[:, :-1],
+                              Cm[:, :-1])
+    return {"update_skipped": ref.ssm_scan(xs, dt2, A, Bm, Cm),
+            "state_reset": (torch.cat([y0, y1], dim=1), h1),
+            "final_state_early": (y, h_early)}
+
+
+def scan_work(xs, A, sfu_per_s):
+    """Bytes (xs, dt, y; Bm, Cm; A; h, each once, float32) and the time of
+    the L*din*ds exponentials at the special-function rate."""
+    B, L, din = xs.shape
+    ds = A.shape[1]
+    nbytes = 4 * (3 * B * L * din + 2 * B * L * ds + din * ds + B * din * ds)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_exp = B * L * din * ds / sfu_per_s
+    return 1e3 * max(t_bytes, t_exp), ("bytes" if t_bytes >= t_exp
+                                       else "operations")
+
+
+def sfu_rate():
+    """exp2 results per second: SMs x SFU_PER_CLOCK_PER_SM x max SM clock
+    (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    require(out, "nvidia-smi gave no max SM clock")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SFU_PER_CLOCK_PER_SM * float(out[0]) * 1e6, sms, float(out[0])
+
+
+def check_scan_serving_shape(model, prompt):
+    """ssm_scan against its plain version at the first prompt's scan
+    inputs: every output row within TOL_SCAN_ROW, every planted fault
+    beyond it; times and bound."""
+    args = first_scan_inputs(model, prompt)
+    got, want = ss.ssm_scan(*args), ref.ssm_scan(*args)
+    abs_err = max(excess(g, w, TOL_SCAN)[1] for g, w in zip(got, want))
+    row = max(row_rel_err(g, w) for g, w in zip(got, want))
+    require(row <= TOL_SCAN_ROW, f"ssm_scan row error {row} > {TOL_SCAN_ROW}")
+    seen = {f: max(row_rel_err(g, w) for g, w in zip(out, want))
+            for f, out in scan_faults(*args, want[0]).items()}
+    require(min(seen.values()) > TOL_SCAN_ROW,
+            f"ssm_scan: a planted fault stays within {TOL_SCAN_ROW}: {seen}")
+    rate, sms, mhz = sfu_rate()
+    bound, by = scan_work(args[0], args[2], rate)
+    return {"max_abs_err": abs_err, "max_row_rel_err": row,
+            "fault_row_rel_err": seen,
+            "ms": time_ms(lambda: ss.ssm_scan(*args)),
+            "plain_ms": host_ms(lambda: ref.ssm_scan(*args)),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "sfu_per_s": rate, "sms": sms, "max_sm_mhz": mhz,
+            "shape": f"xs{list(args[0].shape)} ds {args[2].shape[1]} f32"}
 
 
 KERNEL_FAMILIES = {"flash_kernel": "flash_prefill",
                    "paged_kernel": "paged_attention",
-                   "unified_kernel": "unified_pd"}
+                   "unified_kernel": "unified_pd",
+                   "ssm_kernel": "ssm_scan"}
 MATMUL_MARKS = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
 
 
@@ -464,8 +669,7 @@ def profile_serving(model, cfg):
     requests of the serving stream run again under torch.profiler (whose
     own host overhead lowers the busy share it reports)."""
     from torch.profiler import ProfilerActivity, profile
-    reqs = serve_real.make_requests(cfg, SERVE["requests"], SERVE["seed"],
-                                    SERVE["prompts"], SERVE["new_tokens"])[:3]
+    reqs = serving_requests(cfg)[:3]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, \
@@ -537,30 +741,69 @@ def main():
         say("kernels", phase="f32_test_shapes", tolerance=TOL_F32,
             max_abs_err=worst_f32)
         cfg = get_config("granite-8b")
-        reqs = serve_real.make_requests(cfg, SERVE["requests"],
-                                        SERVE["seed"], SERVE["prompts"],
-                                        SERVE["new_tokens"])
-        shapes = main_path_shapes(cfg, reqs)
+        shapes = main_path_shapes(cfg, serving_requests(cfg))
         recs = check_main_path_shapes(gen, shapes)
         say("kernels", phase="main_path_shapes", tolerance_bf16=TOL_BF16,
             tolerance_bf16_row=TOL_ROW, tolerance_fused_f32=TOL_FUSED,
             f_decodes=F_DECODES, **recs)
-        launches = serve_full()
+
+        model = init_full(cfg)
+        launches = {"granite-8b": serve_full(model)}
+        say("profile", config=cfg.name, **profile_serving(model, cfg))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg = jamba_period()
+        jamba_attn = check_main_path_shapes(
+            gen, main_path_shapes(cfg, serving_requests(cfg)))
+        say("kernels", phase="main_path_shapes", config="jamba-period",
+            **jamba_attn)
+        model = init_full(cfg)
+        recs["ssm_scan"] = check_scan_serving_shape(
+            model, serving_requests(cfg)[0].prompt)
+        say("kernels", phase="ssm_scan_serving_shape",
+            tolerance_row=TOL_SCAN_ROW, **recs["ssm_scan"])
+        launches["jamba-period"] = serve_full(model)
+        say("profile", config=cfg.name, **profile_serving(model, cfg))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same comparison with float32 weights (36 GB), where only the
+        # order of float32 sums separates the two paths
+        model = init_full(replace(cfg, dtype="float32"))
+        errs = first_steps_kernel_vs_plain(model, serving_requests(cfg),
+                                           SERVE["page"])
+        fault = logits_fault(model, serving_requests(cfg)[0].prompt)
+        say("serve", phase="kernel_vs_plain_logits_f32", config=cfg.name,
+            metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS_F32,
+            fault_last_update_skipped=fault, **errs)
+        require(all(e < TOL_LOGITS_F32 for e in errs.values()),
+                f"float32 logits differ between kernel and plain: {errs}")
+        require(fault > TOL_LOGITS_F32, f"a planted scan fault moves the "
+                f"float32 logits by {fault}, within {TOL_LOGITS_F32}")
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
+    # each kernel's launches are those of the first serving run whose path
+    # runs it: granite-8b for attention, the Jamba period for ssm_scan
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:113"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:109"),
                "unified_pd": ("src/repro_torch/csrc/unified_pd.cu",
-                              "src/repro/kernels/unified_pd.py:259")}
+                              "src/repro/kernels/unified_pd.py:259"),
+               "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                            "src/repro/kernels/ssm_scan.py:88")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = recs[name]
+        by_path = {path: n[name] for path, n in launches.items()}
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": next(n for n in by_path.values() if n),
+                        "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"],
                         "max_row_rel_err": r["max_row_rel_err"],
                         "fault_row_rel_err": r["fault_row_rel_err"],
@@ -569,6 +812,11 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         "f32_test_shapes_max_abs_err": worst_f32[name]})
+        if name in jamba_attn:
+            j = jamba_attn[name]
+            kernels[-1]["at_jamba_shapes"] = {
+                k: j[k] for k in ("max_abs_err", "max_row_rel_err", "ms",
+                                  "plain_ms", "bound_ms", "shape")}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

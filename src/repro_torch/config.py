@@ -1,9 +1,9 @@
 """Model configuration for the port: the ``ModelConfig`` fields and the
 helpers the ported modules read, plus the architecture registry.
 
-A copy of the parts of ``repro/config.py`` the port needs; sub-configs
-(MoE, Mamba, xLSTM) stay ``None`` until the slices that port those
-mixers bring their classes.
+A copy of the parts of ``repro/config.py`` the port needs.  The MoE and
+Mamba sub-configs are copied as data; the xLSTM one stays ``None`` until
+the slice that ports that mixer brings its class.
 """
 from __future__ import annotations
 
@@ -12,6 +12,24 @@ import importlib
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    partition: str = "auto"
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
 
 
 @dataclass(frozen=True)
@@ -30,8 +48,8 @@ class ModelConfig:
     layer_pattern: tuple = ("attn",)
     # Per-layer FFN pattern cycled over layers: entries in {"dense","moe","none"}.
     ffn_pattern: tuple = ("dense",)
-    moe: Optional[object] = None
-    mamba: Optional[object] = None
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
     xlstm: Optional[object] = None
     qkv_bias: bool = False
     rope_type: str = "rope"   # rope | mrope | none
@@ -77,6 +95,16 @@ class ModelConfig:
     @property
     def num_periods(self) -> int:
         return self.num_layers // self.period
+
+    @property
+    def d_inner(self) -> int:
+        m = self.mamba or MambaConfig()
+        return m.expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        m = self.mamba or MambaConfig()
+        return m.dt_rank or math.ceil(self.d_model / 16)
 
     def mixer_at(self, pos: int) -> str:
         return self.layer_pattern[pos % len(self.layer_pattern)]

@@ -5,8 +5,11 @@ already a numpy array (``jax.tree.map(np.asarray, params)``); this module
 imports neither JAX nor the reference.  Layer leaves in the reference are
 stacked over periods (leading dim ``num_periods``, one ``pos{i}`` subtree
 per position in the period); layer ``p * period + pos`` of the port takes
-slice ``p`` of ``pos{pos}``.  bfloat16 leaves (ml_dtypes arrays) pass
-through float32, which numpy and torch both read.
+slice ``p`` of ``pos{pos}``, whatever its mixer (attention or Mamba).
+bfloat16 leaves (ml_dtypes arrays) pass through float32, which numpy and
+torch both read.  Each leaf takes the dtype of the port's parameter of
+the same name: the model dtype, except the leaves the reference keeps in
+float32 in any model (Mamba's ``A_log`` and ``D``).
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ def model_from_reference(params, cfg, *, device="cpu",
                 for name, leaf in lp[sub].items():
                     state[f"{pre}{sub}.{name}"] = leaf[p]
     model = Transformer(ParamInit(None, device, dtype), cfg)
-    model.load_state_dict({k: _tensor(v, dtype) for k, v in state.items()},
-                          strict=True)
+    dtypes = {k: t.dtype for k, t in model.state_dict().items()}
+    model.load_state_dict({k: _tensor(v, dtypes.get(k, dtype))
+                           for k, v in state.items()}, strict=True)
     return model

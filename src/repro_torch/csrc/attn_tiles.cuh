@@ -391,6 +391,6 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem_bytes,
     }                                                                     \
   } while (0)
 
-extern "C" const char* attn_error_string(int err) {
+extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the attention hot spots.
+"""Hand-written CUDA kernels for the hot spots of the serving path.
 
 Each kernel has: ``csrc/<name>.cu`` (the CUDA source), a wrapper in
 ``<name>.py`` (checks, launch, launch counter), a layout wrapper in

@@ -100,15 +100,15 @@ def entry(name: str, argtypes):
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        lib.attn_error_string.argtypes = [ctypes.c_int]
-        lib.attn_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
     return fn
 
 
 def check(name: str, err: int) -> None:
     """Raise on a non-zero cudaError_t returned by a launch entry."""
     if err != 0:
-        msg = library(name).attn_error_string(err).decode()
+        msg = library(name).kernel_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
 
 

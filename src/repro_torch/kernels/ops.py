@@ -1,6 +1,7 @@
-"""Model-facing layout wrappers around the kernels.
+"""Model-facing layout wrappers around the kernels, and their launch
+counts.
 
-The models pass (B, S, H, D)-layout tensors; the kernels take
+The models pass (B, S, H, D)-layout tensors; the attention kernels take
 (B, H, S, D).  The transposes here are views: the kernels read strides,
 so no copy is made on the card.
 """
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import unified_pd as _updk
 
 
@@ -64,9 +66,16 @@ def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
     return o_p.transpose(1, 2), o_d
 
 
+def ssm_scan(xs, dt, A, Bm, Cm):
+    """Selective scan from a zero state: xs/dt (B,L,din) f32, A (din,ds),
+    Bm/Cm (B,L,ds) f32 -> y (B,L,din) f32, h_last (B,din,ds) f32."""
+    return _ssm.ssm_scan(xs, dt, A, Bm, Cm)
+
+
 LAUNCH_COUNTED = {"flash_prefill": _fp.flash_prefill,
                   "paged_attention": _pa.paged_attention,
-                  "unified_pd": _updk.unified_pd}
+                  "unified_pd": _updk.unified_pd,
+                  "ssm_scan": _ssm.ssm_scan}
 
 
 def reset_launches() -> None:

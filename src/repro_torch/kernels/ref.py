@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of every attention kernel.
+"""Plain PyTorch versions of every kernel.
 
-No tiling and no online softmax: the simplest correct math, in float32
-throughout and cast to the query's dtype at the end, as the kernels do.
-The CPU tests hold them against the Pallas kernels of ``repro``, and
-``chip_smoke.py`` holds the CUDA kernels against them on the card.
+No tiling, no online softmax and no staging: the simplest correct math,
+in float32 throughout and cast to the input's dtype at the end, as the
+kernels do.  The CPU tests hold them against the reference's kernels and
+oracles, and ``chip_smoke.py`` holds the CUDA kernels against them on the
+card.
 """
 from __future__ import annotations
 
@@ -65,3 +66,22 @@ def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
     o_p = causal_attention(q_p, k_p, v_p, window=window)
     o_d = paged_attention(q_d, k_pages, v_pages, block_tables, seq_lens)
     return o_p, o_d
+
+
+def ssm_scan(xs, dt, A, Bm, Cm):
+    """Sequential (token-by-token) selective scan from a zero state:
+    h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t, y_t = h_t . C_t.
+
+    xs/dt (B,L,din) f32; A (din,ds) f32; Bm/Cm (B,L,ds) f32.
+    Returns y (B,L,din) f32, h_last (B,din,ds) f32.
+    """
+    B, L, din = xs.shape
+    h = torch.zeros(B, din, A.shape[1], device=xs.device,
+                    dtype=torch.float32)
+    ys = []
+    for t in range(L):
+        a = torch.exp(dt[:, t, :, None] * A)
+        b = (dt[:, t] * xs[:, t])[..., None] * Bm[:, t, None]
+        h = a * h + b
+        ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h

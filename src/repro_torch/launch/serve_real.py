@@ -4,6 +4,11 @@ whole-prompt prefill, batched paged decode, continuous batching, and the
 concurrent prefill+decode step — with per-request TTFT and ITL on the
 wall clock.
 
+A request holds one decode slot from admission to its last token; the
+slot is also the row of its recurrent state in every Mamba layer.  A
+step prefills at most one prompt, unpadded: padding a batch of prompts
+would run the Mamba scan over the padding and corrupt the final state.
+
 Each step is one of three kinds:
   * fused   — a waiting prompt and active decode slots: ``fused_pd_forward``
               (one ``unified_pd`` launch per layer, ``--f-decode``);
@@ -81,15 +86,16 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
           page: int = PAGE, f_decode: float = 0.5) -> dict:
     """Serve ``requests`` (all arriving now) to completion.  Returns a
     summary with the finished requests, step counts by kind and whether
-    the KV pool ended fully reclaimed."""
+    the KV pool and the decode slots ended fully reclaimed."""
     cfg = model.cfg
     dev, dtype = model.tok.device, model.tok.dtype
     max_ctx = max(len(r.prompt) + r.max_new for r in requests)
     kv = KVCacheManager(slots * kv_pages_for(max_ctx, page), page)
-    cache = init_cache(cfg, kv.allocator.num_blocks, page, device=dev,
-                       dtype=dtype)
+    cache = init_cache(cfg, kv.allocator.num_blocks, page, slots,
+                       device=dev, dtype=dtype)
     waiting = collections.deque(requests)
     slot_req: List[Optional[Request]] = [None] * slots
+    free_slots = collections.deque(range(slots))
     done: List[Request] = []
     steps = collections.Counter()
     step_s = collections.Counter()      # host seconds by step kind
@@ -109,20 +115,22 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
             r.t_done = now
             done.append(r)
             slot_req[s] = None
+            free_slots.append(s)
 
     t0 = time.perf_counter()
     for r in requests:
         r.t_arrive = t0
     while waiting or any(slot_req):
         t_step = time.perf_counter()
-        free = [s for s in range(slots) if slot_req[s] is None]
         active = [s for s in range(slots) if slot_req[s] is not None]
-        new = waiting.popleft() if waiting and free else None
+        new = waiting.popleft() if waiting and free_slots else None
         if new is not None:
+            new_slot = free_slots.popleft()
             kv.allocate_prompt(new.rid, len(new.prompt))
             p_tok = tensor(new.prompt[None])
             p_pos = torch.arange(len(new.prompt), device=dev)[None]
             p_tab = tables([new.rid])
+            p_slot = torch.tensor([new_slot], device=dev)
         if active:
             reqs = [slot_req[s] for s in active]
             for r in reqs:
@@ -130,21 +138,22 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
             d_tok = tensor([[r.tokens[-1]] for r in reqs])
             d_lens = tensor([r.seq_len for r in reqs])
             d_tab = tables([r.rid for r in reqs])
+            d_slots = torch.tensor(active, device=dev)
         kind = ("fused" if new is not None and active else
                 "prefill" if new is not None else "decode")
         steps[kind] += 1
         if kind == "fused":
             p_logits, aux, d_logits, cache = fused_pd_forward(
                 model, p_tok, p_pos, d_tok, d_lens[:, None], cache, d_tab,
-                d_lens, f_decode=f_decode)
-            write_prefill_to_cache(cache, aux, p_tab)
+                d_lens, d_slots, f_decode=f_decode)
+            write_prefill_to_cache(cache, aux, p_tab, p_slot)
         elif kind == "prefill":
             p_logits, aux = forward(model, p_tok, p_pos, return_aux=True,
                                     last_only=True)
-            write_prefill_to_cache(cache, aux, p_tab)
+            write_prefill_to_cache(cache, aux, p_tab, p_slot)
         else:
             d_logits, cache = decode_forward(model, d_tok, d_lens[:, None],
-                                             cache, d_tab, d_lens)
+                                             cache, d_tab, d_lens, d_slots)
         d_next = (greedy_sample(d_logits, cfg.vocab_size)[:, 0].tolist()
                   if active else [])
         if new is not None:
@@ -162,14 +171,15 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
             new.tokens = [p_next]
             new.seq_len = len(new.prompt)
             new.t_first = new.t_last = now
-            slot_req[free[0]] = new
-            finish_if_done(free[0], now)
+            slot_req[new_slot] = new
+            finish_if_done(new_slot, now)
     wall = time.perf_counter() - t0
     done.sort(key=lambda r: r.rid)
     return {"requests": done, "steps": dict(steps), "step_s": dict(step_s),
             "wall_s": wall,
             "pool_reclaimed": (kv.allocator.free_count ==
-                               kv.allocator.num_blocks)}
+                               kv.allocator.num_blocks),
+            "state_slots_reclaimed": sorted(free_slots) == list(range(slots))}
 
 
 def summarize(result: dict) -> dict:
@@ -188,7 +198,8 @@ def summarize(result: dict) -> dict:
             "steps": result["steps"],
             "step_mean_s": {k: result["step_s"][k] / n
                             for k, n in result["steps"].items()},
-            "pool_reclaimed": result["pool_reclaimed"]}
+            "pool_reclaimed": result["pool_reclaimed"],
+            "state_slots_reclaimed": result["state_slots_reclaimed"]}
 
 
 def main(argv=None):
@@ -218,8 +229,8 @@ def main(argv=None):
         reqs = make_requests(cfg, args.requests, args.seed)
     result = serve(model, reqs, f_decode=args.f_decode)
     print(json.dumps(summarize(result)))
-    if not result["pool_reclaimed"]:
-        raise RuntimeError("KV pool not fully reclaimed")
+    if not (result["pool_reclaimed"] and result["state_slots_reclaimed"]):
+        raise RuntimeError("KV pool or decode slots not fully reclaimed")
     return 0
 
 

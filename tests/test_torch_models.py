@@ -179,7 +179,7 @@ def test_decode_forward_matches_reference(models):
     pools, tables = _identity_pools(jcache, page)
     got, pools = tf.decode_forward(model, torch.tensor(nxt),
                                    torch.from_numpy(dpos), pools, tables,
-                                   torch.from_numpy(lens))
+                                   torch.from_numpy(lens), torch.arange(B))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
     new_pools, _ = _identity_pools(jnew, page)
     for mine, theirs in zip(pools, new_pools):
@@ -221,7 +221,8 @@ def test_fused_pd_forward_matches_reference(models, fused_case, impl):
     got_p, aux, got_d, pools = tf.fused_pd_forward(
         model, torch.from_numpy(c["ptoks"]), torch.from_numpy(c["ppos"]),
         torch.from_numpy(c["nxt"]), torch.from_numpy(c["lens"][:, None]),
-        pools, tables, torch.from_numpy(c["lens"]), f_decode=0.25, impl=impl)
+        pools, tables, torch.from_numpy(c["lens"]), torch.arange(3),
+        f_decode=0.25, impl=impl)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(c["want_p"]),
                                **LOGIT_TOL)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(c["want_d"]),
@@ -249,11 +250,12 @@ def test_paged_prefill_write_and_decode_match_dense(models):
     lens = torch.tensor([S], dtype=torch.int32)
     outs = []
     for blocks in ([0, 1, 2, 3], [9, 2, 6, 4]):
-        cache = tf.init_cache(cfg, 10, page, dtype=torch.float32)
+        cache = tf.init_cache(cfg, 10, page, 1, dtype=torch.float32)
         tab = torch.tensor([blocks], dtype=torch.int32)
-        tf.write_prefill_to_cache(cache, aux, tab)
+        slot = torch.tensor([0])
+        tf.write_prefill_to_cache(cache, aux, tab, slot)
         outs.append(tf.decode_forward(model, nxt, lens[:, None], cache, tab,
-                                      lens)[0])
+                                      lens, slot)[0])
     np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), **F32_TOL)
 
 
@@ -292,7 +294,7 @@ def test_init_model_is_seeded_and_scaled():
     assert torch.equal(a.layers[0].norm1, torch.ones(cfg.d_model,
                                                      dtype=torch.bfloat16))
     with pytest.raises(NotImplementedError):
-        tf.init_model(replace(cfg, layer_pattern=("mamba",)))
+        tf.init_model(replace(cfg, layer_pattern=("mlstm",)))
 
 
 def test_kv_cache_manager_lifecycle():

@@ -75,7 +75,9 @@ def test_serve_greedy_tokens_match_reference():
 def test_serve_main_on_cpu(capsys):
     assert serve_real.main(["--device", "cpu", "--dtype", "float32",
                             "--requests", "3", "--seed", "2"]) == 0
-    assert '"pool_reclaimed": true' in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert '"pool_reclaimed": true' in out
+    assert '"state_slots_reclaimed": true' in out
 
 
 def test_serve_main_needs_gpu_unless_cpu_asked(monkeypatch):
@@ -97,7 +99,9 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "    m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "    m.startswith('repro.'))\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 18, mods\n"
+        "assert {'repro_torch.kernels.ssm_scan', 'repro_torch.models.mamba',\n"
+        "        'repro_torch.configs.jamba_1_5_large_398b'} <= set(mods)\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
