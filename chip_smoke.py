@@ -8,16 +8,18 @@ the result line:
   1. device  — a CUDA device must exist; prints its name and power limit;
   2. build   — compiles every kernel under src/repro_torch/csrc (nvcc);
   3. kernels — each kernel against its plain PyTorch version on the card:
-               float32 at the reference's test shapes (3e-5 for attention,
-               2e-4 for ssm_scan), bfloat16 at the serving path's attention
-               shapes (3e-2, and per output row 1e-2 of the row's largest
-               value, a limit that planted faults — one key dropped, one
-               key or page read from the wrong place — must exceed), and
-               unified_pd against flash_prefill + paged_attention in
-               float32 (1e-6) for several f_decode; times each kernel, its
-               plain version, one PyTorch library call where one computes
-               the same function, and the least time the card could take
-               (bound);
+               float32 at the reference's test shapes, plus decode cases
+               on the edges of the key splits (3e-5 for attention, 2e-4
+               for ssm_scan); bfloat16 at the same attention shapes and at
+               the serving path's (3e-2, and per output row 1e-2 of the
+               row's largest value, a limit that planted faults — one key
+               dropped, one key or page read from the wrong place, one
+               split's keys never read — must exceed); and unified_pd
+               against flash_prefill + paged_attention for several
+               f_decode, within 1e-6 in float32 and bit for bit in
+               bfloat16; times each kernel, its plain version, one PyTorch
+               library call where one computes the same function, and the
+               least time the card could take (bound);
   4. serve   — full-width granite-8b (36 layers, random seeded weights,
                bf16) serves 8 requests through serve_real's loop; exactly
                its three attention kernels must have launched, the KV pool
@@ -75,9 +77,13 @@ TOL_F32, TOL_BF16, TOL_FUSED, TOL_LOGITS = 3e-5, 3e-2, 1e-6, 3e-2
 # two differ only in summation order, far below one bf16 ulp (3.9e-3)
 TOL_LOGITS_F32 = 1e-3
 # bf16, per output row: max|kernel - plain| <= TOL_ROW * max|plain row|.
-# Kernel and plain version both compute in float32 from the same bf16
-# inputs and round once, so a sound kernel differs by at most one bf16 ulp,
-# which is at most 2^-7 = 7.8e-3 of the value.
+# The plain version computes in float32 from the bf16 inputs and rounds
+# once.  The tensor-core prefill tile also rounds P to bf16 before P.V (the
+# decode tile keeps P in float32), so it may differ by a little more than
+# one bf16 ulp (at most 2^-7 = 7.8e-3 of a value): an emulation of that
+# tile on the CPU at granite's prefill shape (32 heads, S = 1762, D = 128,
+# 64-key blocks, normal bf16 inputs) read a worst row of 7.8e-3 with P in
+# bf16 and 7.7e-3 with P in float32.
 TOL_ROW = 1e-2
 # ssm_scan is float32 throughout (the reference's own scan tolerance at the
 # test shapes); at the serving shape each output row of y (one (b, t)) and
@@ -220,7 +226,14 @@ PAGED_SHAPES = [(2, 4, 2, 32, 8, 4, 16), (3, 8, 4, 64, 16, 6, 32),
 UNIFIED_SHAPES = [(1, 2, 4, 2, 128, 32, 8, 4, 16, 0.5, None),
                   (2, 3, 4, 4, 64, 16, 8, 3, 12, 0.25, None),
                   (1, 2, 8, 2, 96, 32, 16, 2, 8, 1.0, 48),
-                  (2, 1, 4, 2, 64, 32, 8, 2, 8, 0.1, None)]
+                  (2, 1, 4, 2, 64, 32, 8, 2, 8, 0.1, None),
+                  (1, 3, 4, 2, 128, 32, 16, 24, 80, 0.5, None)]  # 2 splits
+# decode on the edges of the key splits (SPLIT_KEYS = 256 keys a CTA):
+# (B, Hq, Hkv, D, page, max_pages, N, lens)
+SPLIT_EDGE_CASES = [
+    (3, 8, 4, 64, 16, 40, 128, [1, 256, 257]),       # 1 key, 1 split, +1
+    (4, 4, 2, 32, 8, 70, 300, [560, 300, 20, 513]),  # empty trailing splits
+    (2, 8, 1, 128, 16, 33, 80, [528, 255])]          # G = 8, D = 128
 SSM_SHAPES = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 48, 4),
               (1, 60, 40, 8)]          # (B, L, din, ds), the reference's
 
@@ -250,54 +263,73 @@ def scan_inputs(gen, B, L, din, ds):
             randn(gen, B, L, ds))
 
 
-def check_f32_test_shapes(gen):
-    worst = {"flash_prefill": 0.0, "paged_attention": 0.0, "unified_pd": 0.0,
-             "ssm_scan": 0.0}
-    for shape in SSM_SHAPES:
-        args = scan_inputs(gen, *shape)
-        for got, want in zip(ss.ssm_scan(*args), ref.ssm_scan(*args)):
-            over, err = excess(got, want, TOL_SCAN)
-            require(over <= 0, f"ssm_scan f32 {shape}: max err {err}")
-            worst["ssm_scan"] = max(worst["ssm_scan"], err)
+def paged_case(gen, case, dtype):
+    """Decode inputs of a (B, Hq, Hkv, D, page, max_pages, N, lens) case;
+    random lens in [1, max_pages*page] where lens is None."""
+    B, Hq, Hkv, D, page, mp, N, lens = case
+    q = randn(gen, B, Hq, D, dtype=dtype)
+    kp = randn(gen, N, page, Hkv, D, dtype=dtype)
+    vp = randn(gen, N, page, Hkv, D, dtype=dtype)
+    tabs = tables(gen, B, N, mp)
+    lens = torch.tensor(lens, device=DEVICE, dtype=torch.int32) \
+        if lens else torch.randint(1, mp * page + 1, (B,), generator=gen,
+                                   device=DEVICE, dtype=torch.int32)
+    return q, kp, vp, tabs, lens
+
+
+def unified_case(gen, shape, dtype):
+    Bp, Bd, Hq, Hkv, Sp, D, page, mp, N, f, win = shape
+    return (prefill_inputs(gen, Bp, Hq, Hkv, Sp, D, dtype)
+            + paged_case(gen, (Bd, Hq, Hkv, D, page, mp, N, None), dtype))
+
+
+def check_test_shapes(gen, dtype):
+    """Every kernel against its plain version at the reference's test
+    shapes and the split-edge decode cases: float32 within TOL_F32
+    (TOL_SCAN for the scan); bf16 (attention only) within TOL_BF16 and
+    every output row within TOL_ROW.  Returns the worst errors by kernel."""
+    f32 = dtype == torch.float32
+    worst = {}
+
+    def note(name, got, want, what):
+        if f32:
+            tol = TOL_SCAN if name == "ssm_scan" else TOL_F32
+            over, err = excess(got, want, tol)
+            require(over <= 0, f"{name} f32 {what}: max err {err}")
+            worst[name] = max(worst.get(name, 0.0), err)
+            return
+        r = within_bf16(f"{name} {what}", got, want, {})
+        w = worst.setdefault(name, {"max_abs_err": 0.0,
+                                    "max_row_rel_err": 0.0})
+        for k in w:
+            w[k] = max(w[k], r[k])
+
+    if f32:
+        for shape in SSM_SHAPES:
+            args = scan_inputs(gen, *shape)
+            for got, want in zip(ss.ssm_scan(*args), ref.ssm_scan(*args)):
+                note("ssm_scan", got, want, shape)
     for B, Hq, Hkv, S, D, win in FLASH_SHAPES:
-        q, k, v = prefill_inputs(gen, B, Hq, Hkv, S, D, torch.float32)
-        over, err = excess(fp.flash_prefill(q, k, v, window=win),
-                           ref.causal_attention(q, k, v, window=win),
-                           TOL_F32)
-        require(over <= 0, f"flash_prefill f32 {B, Hq, Hkv, S, D, win}: "
-                f"max err {err}")
-        worst["flash_prefill"] = max(worst["flash_prefill"], err)
-    page_cases = [(B, Hq, Hkv, D, pg, mp, N, None)
-                  for B, Hq, Hkv, D, pg, mp, N in PAGED_SHAPES]
-    page_cases.append((2, 4, 2, 32, 8, 3, 8, [1, 24]))      # len == 1
-    for B, Hq, Hkv, D, page, mp, N, lens in page_cases:
-        q = randn(gen, B, Hq, D)
-        kp, vp = randn(gen, N, page, Hkv, D), randn(gen, N, page, Hkv, D)
-        tabs = tables(gen, B, N, mp)
-        lens = torch.tensor(lens, device=DEVICE, dtype=torch.int32) \
-            if lens else torch.randint(1, mp * page + 1, (B,), generator=gen,
-                                       device=DEVICE, dtype=torch.int32)
-        over, err = excess(pa.paged_attention(q, kp, vp, tabs, lens),
-                           ref.paged_attention(q, kp, vp, tabs, lens),
-                           TOL_F32)
-        require(over <= 0, f"paged_attention f32 {B, Hq, Hkv, D, page}: "
-                f"max err {err}")
-        worst["paged_attention"] = max(worst["paged_attention"], err)
-    for Bp, Bd, Hq, Hkv, Sp, D, page, mp, N, f, win in UNIFIED_SHAPES:
-        qp, kp_, vp_ = prefill_inputs(gen, Bp, Hq, Hkv, Sp, D, torch.float32)
-        qd = randn(gen, Bd, Hq, D)
-        kpg, vpg = randn(gen, N, page, Hkv, D), randn(gen, N, page, Hkv, D)
-        tabs = tables(gen, Bd, N, mp)
-        lens = torch.randint(1, mp * page + 1, (Bd,), generator=gen,
-                             device=DEVICE, dtype=torch.int32)
-        args = (qp, kp_, vp_, qd, kpg, vpg, tabs, lens)
-        op, od = up.unified_pd(*args, f_decode=f, window=win)
-        rp, rd = ref.unified_pd(*args, window=win)
-        for got, want in ((op, rp), (od, rd)):
-            over, err = excess(got, want, TOL_F32)
-            require(over <= 0, f"unified_pd f32 {Bp, Bd, Hq, Sp, f, win}: "
-                    f"max err {err}")
-            worst["unified_pd"] = max(worst["unified_pd"], err)
+        q, k, v = prefill_inputs(gen, B, Hq, Hkv, S, D, dtype)
+        note("flash_prefill", fp.flash_prefill(q, k, v, window=win),
+             ref.causal_attention(q, k, v, window=win),
+             (B, Hq, Hkv, S, D, win))
+    cases = [c + (None,) for c in PAGED_SHAPES]
+    cases.append((2, 4, 2, 32, 8, 3, 8, [1, 24]))      # len == 1
+    for case in cases + SPLIT_EDGE_CASES:
+        dec = paged_case(gen, case, dtype)
+        note("paged_attention", pa.paged_attention(*dec),
+             ref.paged_attention(*dec), case)
+    for shape in UNIFIED_SHAPES:
+        args = unified_case(gen, shape, dtype)
+        f, win = shape[-2:]
+        got = up.unified_pd(*args, f_decode=f, window=win)
+        want = ref.unified_pd(*args, window=win)
+        if f32:
+            for g, w in zip(got, want):
+                note("unified_pd", g, w, shape)
+        else:
+            note("unified_pd", got, want, shape)
     return worst
 
 
@@ -326,13 +358,26 @@ def prefill_faults(q, k, v):
 
 def decode_faults(q, k_pages, v_pages, tabs, lens):
     """The plain decode under planted faults: each sequence's last key
-    never read; its first page read from its second page's block."""
+    never read; its first page read from its second page's block; and the
+    keys of its first split never read (that split's pages cut out of the
+    table, the length cut by SPLIT_KEYS) where it has a second split, when
+    one has."""
     tabs2 = tabs.clone()
     tabs2[:, 0] = tabs[:, 1]
-    return {"last_key_dropped": ref.paged_attention(q, k_pages, v_pages,
-                                                    tabs, lens - 1),
-            "page_0_read_as_page_1": ref.paged_attention(q, k_pages, v_pages,
-                                                         tabs2, lens)}
+    page = k_pages.shape[1]
+    require(pa.SPLIT_KEYS % page == 0, f"page {page} does not divide a split")
+    cut = pa.SPLIT_KEYS // page
+    long = lens > pa.SPLIT_KEYS
+    tabs3 = torch.where(long[:, None], tabs.roll(-cut, dims=1), tabs)
+    lens3 = torch.where(long, lens - pa.SPLIT_KEYS, lens)
+    faults = {"last_key_dropped": ref.paged_attention(q, k_pages, v_pages,
+                                                      tabs, lens - 1),
+              "page_0_read_as_page_1": ref.paged_attention(
+                  q, k_pages, v_pages, tabs2, lens)}
+    if bool(long.any()):
+        faults["split_0_skipped"] = ref.paged_attention(q, k_pages, v_pages,
+                                                        tabs3, lens3)
+    return faults
 
 
 def within_bf16(name, got, want, faults):
@@ -353,7 +398,7 @@ def within_bf16(name, got, want, faults):
     require(row <= TOL_ROW, f"{name} bf16 row error {row} > {TOL_ROW}")
     seen = {f: rows(out if isinstance(out, tuple) else (out,), want)
             for f, out in faults.items()}
-    require(min(seen.values()) > TOL_ROW,
+    require(all(e > TOL_ROW for e in seen.values()),
             f"{name}: a planted fault stays within {TOL_ROW}: {seen}")
     return {"max_abs_err": abs_err, "max_row_rel_err": row,
             "fault_row_rel_err": seen}
@@ -393,6 +438,9 @@ def check_main_path_shapes(gen, shapes):
         lambda: pa.paged_attention(*dec), lambda: ref.paged_attention(*dec),
         None, decode_work(dec[0], dec[1], dec[4]),
         f"q{list(dec[0].shape)} lens{shapes['decode_lens']} page {page} bf16")
+    recs["paged_attention"]["splits"] = pa.split_count(dec[3].shape[1], page)
+    recs["paged_attention"]["ctas"] = (recs["paged_attention"]["splits"]
+                                       * Hkv * dec[0].shape[0])
 
     def fused_args(dtype):
         return (prefill_inputs(gen, 1, Hq, Hkv, shapes["fused_S"], D, dtype)
@@ -413,6 +461,16 @@ def check_main_path_shapes(gen, shapes):
         lambda: ref.unified_pd(*args), None, (pb + db, pf + df),
         f"prefill q{list(args[0].shape)} + decode q{list(args[3].shape)} "
         f"lens{shapes['fused_lens']} bf16")
+    recs["unified_pd"]["splits"] = pa.split_count(args[6].shape[1], page)
+
+    # bf16: the fused kernel runs the standalone kernels' tiles, so its
+    # outputs are theirs bit for bit, whatever f_decode is
+    alone = (fp.flash_prefill(*args[:3]), pa.paged_attention(*args[3:]))
+    for f in F_DECODES:
+        for got, want in zip(up.unified_pd(*args, f_decode=f), alone):
+            require(torch.equal(got, want), f"unified_pd bf16 != standalone "
+                    f"at f_decode={f}: max err {excess(got, want, 0)[1]}")
+    recs["unified_pd"]["fused_vs_standalone_bf16_bit_equal"] = True
 
     # float32: the fused kernel == the standalone kernels, any f_decode
     args = fused_args(torch.float32)
@@ -426,6 +484,37 @@ def check_main_path_shapes(gen, shapes):
             fused_err = max(fused_err, err)
     recs["unified_pd"]["fused_vs_standalone_f32_max_err"] = fused_err
     return recs
+
+
+def kernel_scaling(gen, shapes):
+    """Where the two redesigned kernels' time goes at the serving widths:
+    paged_attention over the serving table width with 1-token sequences
+    (its fixed cost: launch, table, merges), at the serving lengths, and
+    over twice the lengths and table width (its marginal cost per byte);
+    flash_prefill at 4096 tokens and at D = 64, beside SDPA on the same
+    inputs."""
+    Hq, Hkv, D, page = (shapes[k] for k in ("Hq", "Hkv", "D", "page"))
+    bf16, lens = torch.bfloat16, shapes["decode_lens"]
+    B, mp = len(lens), -(-max(lens) // page)
+    out = {}
+    for name, ls, width in (("decode_len_1", [1] * B, mp),
+                            ("decode_serving", lens, mp),
+                            ("decode_2x", [2 * n for n in lens], 2 * mp)):
+        dec = paged_case(gen, (B, Hq, Hkv, D, page, width, B * width + 4,
+                               ls), bf16)
+        nbytes = decode_work(dec[0], dec[1], dec[4])[0]
+        ms = time_ms(lambda: pa.paged_attention(*dec))
+        out[name] = {"ms": ms, "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+                     "splits": pa.split_count(width, page)}
+    for name, S, d in (("prefill_4096", 4096, D),
+                       ("prefill_d64", shapes["prefill_S"], 64)):
+        q, k, v = prefill_inputs(gen, 1, Hq, Hkv, S, d, bf16)
+        ms = time_ms(lambda: fp.flash_prefill(q, k, v))
+        out[name] = {"ms": ms, "tflop_per_s": prefill_work(q, k)[1] / ms / 1e9,
+                     "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                         q, k, v, is_causal=True, enable_gqa=True)),
+                     "shape": f"q{list(q.shape)} k{list(k.shape)} bf16"}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -734,18 +823,24 @@ def main():
         t = time.perf_counter()
         libs = build.build_all()
         say("build", seconds=time.perf_counter() - t,
-            libraries=sorted(p.name for p in libs.values()))
+            libraries=sorted(p.name for p in libs.values()),
+            ptxas=build.ptxas_report())
 
         gen = torch.Generator(device=DEVICE).manual_seed(0)
-        worst_f32 = check_f32_test_shapes(gen)
+        worst_f32 = check_test_shapes(gen, torch.float32)
         say("kernels", phase="f32_test_shapes", tolerance=TOL_F32,
             max_abs_err=worst_f32)
+        worst_bf16 = check_test_shapes(gen, torch.bfloat16)
+        say("kernels", phase="bf16_test_shapes", tolerance=TOL_BF16,
+            tolerance_row=TOL_ROW, **worst_bf16)
         cfg = get_config("granite-8b")
         shapes = main_path_shapes(cfg, serving_requests(cfg))
         recs = check_main_path_shapes(gen, shapes)
         say("kernels", phase="main_path_shapes", tolerance_bf16=TOL_BF16,
             tolerance_bf16_row=TOL_ROW, tolerance_fused_f32=TOL_FUSED,
             f_decodes=F_DECODES, **recs)
+        say("kernels", phase="scaling", config=cfg.name,
+            **kernel_scaling(gen, shapes))
 
         model = init_full(cfg)
         launches = {"granite-8b": serve_full(model)}
@@ -812,11 +907,16 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         "f32_test_shapes_max_abs_err": worst_f32[name]})
+        if name in worst_bf16:
+            kernels[-1]["bf16_test_shapes"] = worst_bf16[name]
+        if "splits" in r:
+            kernels[-1]["splits"] = r["splits"]
         if name in jamba_attn:
             j = jamba_attn[name]
             kernels[-1]["at_jamba_shapes"] = {
                 k: j[k] for k in ("max_abs_err", "max_row_rel_err", "ms",
-                                  "plain_ms", "bound_ms", "shape")}
+                                  "plain_ms", "bound_ms", "shape", "splits")
+                if k in j}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,31 +15,37 @@
 // Bound on the H100: the sum of its two parts, operations for the prefill
 // tiles and bytes for the decode tiles; running both in one launch lets
 // decode's memory-bound tiles fill SMs while prefill's compute-bound tiles
-// run.  Both kinds share one block size and one dynamic shared-memory size,
-// the larger of the two tiles' needs.  The tile bodies are the functions of
-// the standalone kernels (attn_tiles.cuh), so in float32 the fused outputs
-// equal theirs exactly, whatever f_decode is.
+// run.  The tile bodies are the standalone kernels' (attn_tiles.cuh): the
+// tensor-core prefill tile in bf16, and the split decode tile, which the
+// wrapper schedules as Bd x (Hkv * splits) decode slots: column dkvh of a
+// decode row is kvh * splits + split.  Both kernels run the same tiles with the same
+// split count and merge, so the fused outputs equal the standalone
+// kernels' bit for bit in both dtypes, whatever f_decode is.  Both kinds
+// share one block size and one dynamic shared-memory size, the larger of
+// the two tiles' needs.
 #include "attn_tiles.cuh"
 
 template <typename T, int D>
-__global__ void __launch_bounds__(attn::THREADS)
+__global__ void __launch_bounds__(attn::THREADS, attn::MinCtas<T>::value)
     unified_kernel(const int* desc, attn::PrefillArgs p, attn::DecodeArgs d) {
   extern __shared__ float smem[];
   const int* row = desc + blockIdx.x * 7;  // [kind, pb, ph, pkvh, pqi, db, dkvh]
   if (row[0] == attn::PREFILL)
-    attn::flash_tile<T, D>(p, row[1], row[2], row[4], smem);
+    attn::prefill_tile<T, D>(p, row[1], row[2], row[4], smem);
   else
-    attn::paged_tile<T, D>(d, row[5], row[6], smem);
+    attn::paged_tile<T, D>(d, row[5], row[6] / d.splits, row[6] % d.splits,
+                           smem);
 }
 
 template <typename T, int D>
 static int run(const int* desc, int n_slots, const attn::PrefillArgs& p,
                const attn::DecodeArgs& d, cudaStream_t stream) {
-  const int flash = attn::flash_smem_floats<D>();
-  const int paged = attn::paged_smem_floats(D, d.Hq / d.Hkv);
-  const size_t smem = (flash > paged ? flash : paged) * sizeof(float);
-  return attn::launch(unified_kernel<T, D>, dim3(n_slots), smem, stream,
-                      desc, p, d);
+  const int flash = attn::prefill_smem_bytes<T, D>();
+  const int paged =
+      attn::paged_smem_bytes(D, d.Hq / d.Hkv, static_cast<int>(sizeof(T)),
+                             d.splits);
+  return attn::launch(unified_kernel<T, D>, dim3(n_slots),
+                      flash > paged ? flash : paged, stream, desc, p, d);
 }
 
 // Prefill operands as flash_prefill_launch, decode operands as
@@ -51,11 +57,13 @@ extern "C" int unified_pd_launch(
     long long vh, long long vs, long long ob, long long oh, long long os,
     int S, int Hq, int Hkv, int window, const void* q_d, const void* k_pages,
     const void* v_pages, const int* tables, const int* lens, void* o_d,
-    int page, int max_pages, float sm_scale, void* stream) {
+    float* part, int* count, int page, int max_pages, int splits,
+    float sm_scale, void* stream) {
   attn::PrefillArgs p{q, k, v, o, {qb, qh, qs}, {kb, kh, ks}, {vb, vh, vs},
                       {ob, oh, os}, S, Hq, Hkv, window, sm_scale};
-  attn::DecodeArgs d{q_d, k_pages, v_pages, tables, lens, o_d,
-                     Hq, Hkv, page, max_pages, sm_scale};
+  attn::DecodeArgs d{q_d,  k_pages, v_pages, tables, lens,       o_d,
+                     part, count,   Hq,      Hkv,    page,       max_pages,
+                     splits, sm_scale};
   ATTN_DISPATCH(dtype, D, run, desc, n_slots, p, d,
                 static_cast<cudaStream_t>(stream));
 }

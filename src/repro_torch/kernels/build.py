@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 all at once in parallel, into ``build/kernels/<name>-<hash>.so`` at the
 root of the checkout; the hash covers the sources, the shared headers
 and the flags, so an edit rebuilds and an unchanged tree reuses the
-library.  A failed build raises with the compiler's output.
+library.  A failed build raises with the compiler's output; a
+successful one keeps it beside the library (``<name>-<hash>.log``), with
+ptxas's register, shared-memory and spill counts of every kernel
+(``ptxas_report``).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,7 +28,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -75,10 +79,45 @@ def build_all() -> Dict[str, pathlib.Path]:
             failures.append(f"{src.name}:\n{out}")
             os.unlink(tmp)
         else:
+            targets[src.stem].with_suffix(".log").write_text(out)
             os.replace(tmp, targets[src.stem])
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return targets
+
+
+def ptxas_report() -> Dict[str, dict]:
+    """{kernel (mangled name): registers, spill bytes, shared memory, and
+    ptxas's warnings (such as wgmma serialization)} from the build logs of
+    the current sources."""
+    report = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        log = _target(src).with_suffix(".log")
+        if not log.exists():
+            continue
+        kernel = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+                report[kernel] = {"source": src.name, "warnings": []}
+                continue
+            if kernel is None:
+                continue
+            if "Performance Loss" in line or "warning" in line:
+                named = re.search(r"function '(\w+)'", line)
+                report.setdefault(named.group(1) if named else kernel,
+                                  {"source": src.name, "warnings": []}
+                                  ).setdefault("warnings", []).append(
+                                      line.split(":", 1)[-1].strip())
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("smem_bytes", r"(\d+) bytes smem"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+                m = re.search(pat, line)
+                if m:
+                    report[kernel][key] = int(m.group(1))
+    return report
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -5,17 +5,58 @@ the wrapper computes the plain version (``ref.paged_attention``); on a
 CUDA tensor it launches the kernel or raises.  The kernel reads only the
 first ``seq_lens[b]`` keys of sequence b through its block-table row, so
 padded table entries must be valid block ids (0) but are never read.
+
+The kernel splits each sequence's keys over ``split_count`` CTAs of
+``SPLIT_KEYS`` keys each; the count comes from the block table's width
+and the page size, shapes the host holds, so no launch waits on
+``seq_lens``.  The wrapper allocates the float32 workspace of the
+splits' partials per call and keeps one zeroed counter buffer per device,
+which the kernel leaves zeroed.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import build, ref
 
+SPLIT_KEYS = 256   # keys of one decode CTA (attn_tiles.cuh SPLIT)
+MAX_G = 8          # query heads per kv head a decode CTA holds (MAX_G)
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I, _I] + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]
+_ARGTYPES = [_I, _I] + [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def split_count(max_pages: int, page: int) -> int:
+    """Decode CTAs per (sequence, kv head): the table's key capacity in
+    SPLIT_KEYS pieces (at least 1)."""
+    return max(1, -(-max_pages * page // SPLIT_KEYS))
+
+
+def counters(device, n: int) -> torch.Tensor:
+    """The device's zeroed int32 arrival counters, at least ``n`` of them.
+    Kernels on one stream share them: each launch leaves them at 0."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
+
+
+def split_args(q, k_pages, block_tables):
+    """The split decode tiles' launch arguments for q (B,Hq,D) over
+    k_pages (N,page,Hkv,D): the partials' float32 workspace, the counters
+    and the split count.  The caller holds the workspace until the launch
+    is queued."""
+    B, Hq, D = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    splits = split_count(block_tables.shape[1], page)
+    part = torch.empty(B * Hkv * splits * (Hq // Hkv) * (D + 2),
+                       dtype=torch.float32, device=q.device)
+    return part, counters(q.device, B * Hkv), splits
 
 
 def check_decode(q, k_pages, v_pages, block_tables, seq_lens) -> None:
@@ -28,6 +69,9 @@ def check_decode(q, k_pages, v_pages, block_tables, seq_lens) -> None:
     if Hq % k_pages.shape[2]:
         raise ValueError(f"Hq={Hq} is not a multiple of "
                          f"Hkv={k_pages.shape[2]}")
+    if Hq // k_pages.shape[2] > MAX_G:
+        raise ValueError(f"G = {Hq // k_pages.shape[2]} query heads per kv "
+                         f"head exceed {MAX_G}")
     if D not in build.HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {build.HEAD_DIMS}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
@@ -56,11 +100,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     o = torch.empty_like(q)
     if B == 0:
         return o
+    part, count, splits = split_args(q, k_pages, block_tables)
     fn = build.entry("paged_attention", _ARGTYPES)
     err = fn(code, D, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), seq_lens.data_ptr(), o.data_ptr(),
-             B, Hq, Hkv, page, block_tables.shape[1], 1.0 / D ** 0.5,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             part.data_ptr(), count.data_ptr(), B, Hq, Hkv, page, block_tables.shape[1], splits,
+             1.0 / D ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
     build.check("paged_attention", err)
     paged_attention.launches += 1
     return o

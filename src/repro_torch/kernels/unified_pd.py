@@ -9,9 +9,11 @@ tile every 4 slots).  The outputs do not depend on it.
 
 The descriptor table is built on the host (``_make_descriptors``, the
 same 7-column rows as the reference) and copied to the device once per
-distinct step shape.  On a CPU tensor the wrapper computes the plain
-version (``ref.unified_pd``); on a CUDA tensor it launches the kernel or
-raises.
+distinct step shape.  Its decode tiles are the split tiles of
+``paged_attention`` (``split_descriptors``), so the fused kernel's decode
+output equals the standalone kernel's bit for bit.  On a CPU tensor the
+wrapper computes the plain version (``ref.unified_pd``); on a CUDA tensor
+it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -25,13 +27,14 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_prefill import BLOCK_Q, bhs_strides, \
     check_prefill
-from repro_torch.kernels.paged_attention import check_decode
+from repro_torch.kernels.paged_attention import check_decode, split_args, \
+    split_count
 
 PREFILL, DECODE = 0, 1
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_I, _I, _P, _I, _P, _P, _P, _P] + [_L] * 12 + [_I] * 4 + \
-    [_P] * 6 + [_I, _I, ctypes.c_float, _P]
+    [_P] * 8 + [_I] * 3 + [ctypes.c_float, _P]
 
 
 def build_slot_schedule(n_prefill: int, n_decode: int,
@@ -76,11 +79,19 @@ def _make_descriptors(Bp: int, Hq: int, nq: int, Bd: int, Hkv: int,
     return desc
 
 
+def split_descriptors(Bp: int, Hq: int, nq: int, Bd: int, Hkv: int,
+                      G: int, splits: int, f_decode: float) -> np.ndarray:
+    """The descriptor rows of a step whose decode tiles are split: the
+    reference's schedule over Bd x (Hkv * splits) decode tiles, whose
+    ``dkvh`` column the kernel reads as kvh * splits + split."""
+    return _make_descriptors(Bp, Hq, nq, Bd, Hkv * splits, G, f_decode)
+
+
 @functools.lru_cache(maxsize=256)
 def _device_descriptors(key, device) -> torch.Tensor:
     # Read-only on the device; every layer of a step, and every step of
     # the same shape, reuses one copy instead of a host-to-device copy.
-    return torch.from_numpy(_make_descriptors(*key)).to(device)
+    return torch.from_numpy(split_descriptors(*key)).to(device)
 
 
 def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
@@ -110,18 +121,21 @@ def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
     if Bp * Sp == 0 or Bd == 0:
         raise ValueError("unified_pd needs a prefill and a decode batch")
     nq = -(-Sp // BLOCK_Q)
+    page, max_pages = k_pages.shape[1], block_tables.shape[1]
     desc = _device_descriptors((Bp, Hq, nq, Bd, Hkv, Hq // Hkv,
+                                split_count(max_pages, page),
                                 float(f_decode)), q_p.device)
     o_p = torch.empty_like(q_p)
     o_d = torch.empty_like(q_d)
+    part, count, splits = split_args(q_d, k_pages, block_tables)
     fn = build.entry("unified_pd", _ARGTYPES)
     err = fn(code, D, desc.data_ptr(), desc.shape[0], q_p.data_ptr(),
              k_p.data_ptr(), v_p.data_ptr(), o_p.data_ptr(),
              *bhs_strides(q_p), *bhs_strides(k_p), *bhs_strides(v_p),
              *bhs_strides(o_p), Sp, Hq, Hkv, window or 0, q_d.data_ptr(),
              k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-             seq_lens.data_ptr(), o_d.data_ptr(), k_pages.shape[1],
-             block_tables.shape[1], 1.0 / D ** 0.5,
+             seq_lens.data_ptr(), o_d.data_ptr(), part.data_ptr(),
+             count.data_ptr(), page, max_pages, splits, 1.0 / D ** 0.5,
              torch.cuda.current_stream(q_p.device).cuda_stream)
     build.check("unified_pd", err)
     unified_pd.launches += 1

@@ -19,10 +19,13 @@ from repro.kernels.unified_pd import build_slot_schedule as jax_schedule
 from repro.kernels.unified_pd import unified_pd as jax_unified
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_prefill import check_prefill, flash_prefill
-from repro_torch.kernels.paged_attention import (check_decode,
-                                                 paged_attention)
+from repro_torch.kernels.paged_attention import (MAX_G, SPLIT_KEYS,
+                                                 check_decode, counters,
+                                                 paged_attention,
+                                                 split_count)
 from repro_torch.kernels.unified_pd import (_make_descriptors,
-                                            build_slot_schedule, unified_pd)
+                                            build_slot_schedule,
+                                            split_descriptors, unified_pd)
 
 # float32 on both sides; the two frameworks sum in different orders
 TOL = dict(atol=3e-5, rtol=3e-5)
@@ -195,3 +198,94 @@ def test_plain_keeps_input_dtype_and_finite_masked_rows():
                              torch.zeros(1, 2, dtype=torch.int32),
                              torch.zeros(1, dtype=torch.int32))
     assert torch.isfinite(od).all()
+
+
+@pytest.mark.parametrize("max_pages,page,splits", [
+    (1, 16, 1), (16, 16, 1), (17, 16, 2), (111, 16, 7), (3, 8, 1),
+    (40, 16, 3), (70, 8, 3), (64, 4, 1), (65, 4, 2)])
+def test_split_count_from_table_width_and_page(max_pages, page, splits):
+    """The decode split count is the table's key capacity in SPLIT_KEYS
+    pieces: host shapes only, never seq_lens."""
+    assert SPLIT_KEYS == 256
+    assert split_count(max_pages, page) == splits
+
+
+@pytest.mark.parametrize("Bp,Hq,nq,Bd,Hkv,G,splits", [
+    (1, 32, 28, 4, 8, 4, 7),      # granite's fused step
+    (2, 4, 3, 3, 2, 2, 3),
+    (1, 64, 14, 3, 8, 8, 6),      # Jamba's attention heads
+    (1, 8, 1, 1, 1, 8, 1)])
+@pytest.mark.parametrize("f_decode", [1.0, 0.5, 0.25, 0.1])
+def test_split_descriptors_cover_every_split_once(Bp, Hq, nq, Bd, Hkv, G,
+                                                  splits, f_decode):
+    """Every (sequence, kv head, split) is one decode slot, read as
+    kvh * splits + split; every prefill tile is one slot; the slot kinds
+    are the reference's schedule for the expanded decode count."""
+    desc = split_descriptors(Bp, Hq, nq, Bd, Hkv, G, splits, f_decode)
+    n_p, n_d = Bp * Hq * nq, Bd * Hkv * splits
+    np.testing.assert_array_equal(desc[:, 0],
+                                  jax_schedule(n_p, n_d, f_decode))
+    dec = desc[desc[:, 0] == 1]
+    got = sorted((int(b), int(c) // splits, int(c) % splits)
+                 for b, c in dec[:, 5:7])
+    assert got == [(b, h, s) for b in range(Bd) for h in range(Hkv)
+                   for s in range(splits)]
+    pre = desc[desc[:, 0] == 0]
+    assert sorted(map(tuple, pre[:, 1:5].tolist())) == sorted(
+        (b, h, h // G, qi) for b in range(Bp) for h in range(Hq)
+        for qi in range(nq))
+    np.testing.assert_array_equal(
+        desc, jax_descriptors(Bp, Hq, nq, Bd, Hkv * splits, G, f_decode))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,page,max_pages,lens", [
+    (3, 8, 4, 64, 16, 40, [1, 256, 257]),
+    (4, 4, 2, 32, 8, 70, [560, 300, 20, 513]),
+    (2, 8, 1, 128, 16, 33, [528, 255])])
+def test_paged_attention_plain_at_split_edges_matches_pallas(
+        B, Hq, Hkv, D, page, max_pages, lens):
+    """The wrapper's plain version, which the card's split-edge checks hold
+    the kernel to, equals the reference kernel where the decode splits
+    meet: 1 key, exactly one split, one key more, and sequences whose
+    trailing splits are empty."""
+    assert split_count(max_pages, page) * SPLIT_KEYS > max(lens)
+    rs = np.random.RandomState(6)
+    N = B * max_pages
+    q = _normal(rs, B, Hq, D)
+    kp, vp = _normal(rs, N, page, Hkv, D), _normal(rs, N, page, Hkv, D)
+    tabs = _tables(rs, B, N, max_pages)
+    seq = np.array(lens, np.int32)
+    want = jax_paged(*map(jnp.asarray, (q, kp, vp, tabs, seq)),
+                     interpret=True)
+    got = paged_attention(*map(torch.from_numpy, (q, kp, vp, tabs, seq)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_split_counters_are_zeroed_and_grow():
+    """The per-device arrival counters start at zero, are reused while
+    large enough and replaced by a larger zeroed buffer when not."""
+    dev = torch.device("cpu")
+    a = counters(dev, 10)
+    assert a.dtype == torch.int32 and a.numel() >= 10 and not a.any()
+    assert counters(dev, 10) is a
+    b = counters(dev, a.numel() + 1)
+    assert b.numel() > a.numel() and not b.any()
+    assert counters(dev, 5) is b
+
+
+def test_decode_check_rejects_query_groups_past_the_tile():
+    """A decode tile holds G = Hq/Hkv <= MAX_G query heads in registers;
+    the wrapper refuses more before any launch."""
+    assert MAX_G == 8
+
+    def pages(Hkv, D):
+        return torch.zeros(4, 8, Hkv, D), torch.zeros(4, 8, Hkv, D)
+
+    tabs = torch.zeros(1, 2, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
+    check_decode(torch.zeros(1, 8, 128), *pages(1, 128), tabs, lens)
+    check_decode(torch.zeros(1, 64, 16), *pages(8, 16), tabs, lens)
+    with pytest.raises(ValueError, match="exceed"):
+        check_decode(torch.zeros(1, 16, 128), *pages(1, 128), tabs, lens)
+    with pytest.raises(ValueError, match="exceed"):
+        check_decode(torch.zeros(1, 32, 16), *pages(2, 16), tabs, lens)
