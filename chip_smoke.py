@@ -17,9 +17,12 @@ the result line:
                split's keys never read — must exceed); and unified_pd
                against flash_prefill + paged_attention for several
                f_decode, within 1e-6 in float32 and bit for bit in
-               bfloat16; times each kernel, its plain version, one PyTorch
-               library call where one computes the same function, and the
-               least time the card could take (bound);
+               bfloat16; ssm_scan also at ragged shapes, in two halves,
+               the second from the first's final state (h0);
+               paged_attention on two streams at once, each launch against
+               its plain version; times each kernel, its plain version,
+               one PyTorch library call where one computes the same
+               function, and the least time the card could take (bound);
   4. serve   — full-width granite-8b (36 layers, random seeded weights,
                bf16) serves 8 requests through serve_real's loop; exactly
                its three attention kernels must have launched, the KV pool
@@ -31,9 +34,10 @@ the result line:
                1 attention; dense FFNs in place of MoE; random seeded
                weights, bf16).  The attention kernels at its shapes as in
                phase 3 (64 query heads); ssm_scan against its plain version
-               at the scan inputs of the first prompt's first Mamba layer
-               (per output row 1e-3 of the row's largest value, which
-               planted faults must exceed), timed; then the same serving
+               at the scan inputs of the first prompt's first Mamba layer,
+               again with a random A, and in two halves from h0 (per output
+               row 1e-3 of the row's largest value, which planted faults
+               must exceed); then the same serving
                run as phase 4, which must launch all four kernels, the
                same kernel-vs-plain logits check, in bf16 (3e-2) and again
                with float32 weights (1e-3), and the same profiled rerun.
@@ -236,6 +240,9 @@ SPLIT_EDGE_CASES = [
     (2, 8, 1, 128, 16, 33, 80, [528, 255])]          # G = 8, D = 128
 SSM_SHAPES = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 48, 4),
               (1, 60, 40, 8)]          # (B, L, din, ds), the reference's
+# din not a multiple of 4 (the kernel's 4-byte copy path) and L not a
+# multiple of its 32-step chunk
+SSM_RAGGED_SHAPES = [(2, 45, 37, 16), (1, 33, 70, 8), (3, 7, 5, 4)]
 
 
 def prefill_inputs(gen, B, Hq, Hkv, S, D, dtype):
@@ -305,10 +312,13 @@ def check_test_shapes(gen, dtype):
             w[k] = max(w[k], r[k])
 
     if f32:
-        for shape in SSM_SHAPES:
+        for shape in SSM_SHAPES + SSM_RAGGED_SHAPES:
             args = scan_inputs(gen, *shape)
-            for got, want in zip(ss.ssm_scan(*args), ref.ssm_scan(*args)):
-                note("ssm_scan", got, want, shape)
+            want = ref.ssm_scan(*args)
+            for g, w in zip(ss.ssm_scan(*args), want):
+                note("ssm_scan", g, w, shape)
+            for g, w in zip(scan_halves(*args), want):
+                note("ssm_scan", g, w, (shape, "from h0"))
     for B, Hq, Hkv, S, D, win in FLASH_SHAPES:
         q, k, v = prefill_inputs(gen, B, Hq, Hkv, S, D, dtype)
         note("flash_prefill", fp.flash_prefill(q, k, v, window=win),
@@ -331,6 +341,15 @@ def check_test_shapes(gen, dtype):
         else:
             note("unified_pd", got, want, shape)
     return worst
+
+
+def scan_halves(xs, dt, A, Bm, Cm):
+    """The kernel over the first half of the steps, then over the second
+    half from the first half's final state: (y, final h) of the whole."""
+    m = xs.shape[1] // 2
+    y0, h = ss.ssm_scan(xs[:, :m], dt[:, :m], A, Bm[:, :m], Cm[:, :m])
+    y1, h = ss.ssm_scan(xs[:, m:], dt[:, m:], A, Bm[:, m:], Cm[:, m:], h)
+    return torch.cat([y0, y1], dim=1), h
 
 
 def main_path_shapes(cfg, reqs):
@@ -486,6 +505,69 @@ def check_main_path_shapes(gen, shapes):
     return recs
 
 
+def check_two_streams(gen, shapes, launches=20):
+    """paged_attention on two streams at once, each with its own inputs
+    (the serving decode batch, and one of about half its lengths),
+    ``launches`` times each, interleaved, queued behind a spin on both
+    streams so that the two queues drain together.  Every output within
+    TOL_ROW of its plain version and equal to its stream's first (the
+    merge order is fixed), and each stream with its own arrival counters.
+    Then the same run with one counter buffer planted for both streams,
+    the fault that per-stream counters repair: its errors are recorded,
+    not required, since whether the two launches race on one (sequence,
+    kv head) counter depends on how the card schedules them.  Returns the
+    errors."""
+    Hq, Hkv, D, page = (shapes[k] for k in ("Hq", "Hkv", "D", "page"))
+    lens = shapes["decode_lens"]
+    decs = [decode_inputs(gen, ls, Hq, Hkv, D, page, torch.bfloat16)
+            for ls in (lens, [n // 2 + 1 for n in lens])]
+    wants = [ref.paged_attention(*dec) for dec in decs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+
+    def run():
+        outs = ([], [])
+        torch.cuda.synchronize()
+        spun = []
+        for st in streams:
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(20 * SLEEP_CYCLES)     # about 20 ms
+                spun.append(torch.cuda.Event())
+                spun[-1].record()
+        for _ in range(launches):
+            for st, dec, out in zip(streams, decs, outs):
+                with torch.cuda.stream(st):
+                    out.append(pa.paged_attention(*dec))
+        overlapped = not any(ev.query() for ev in spun)
+        torch.cuda.synchronize()
+        require(overlapped, "a spin ended before both streams were queued")
+        return [max(row_rel_err(o, want) for o in out)
+                for out, want in zip(outs, wants)], outs
+
+    errs, outs = run()
+    bufs = {pa.counters(decs[0][0].device, 1, st.cuda_stream).data_ptr()
+            for st in streams}
+    require(len(bufs) == 2, "two streams share one counter buffer")
+    for err, out in zip(errs, outs):
+        require(err <= TOL_ROW, f"paged_attention on two streams: row "
+                f"error {err} > {TOL_ROW}")
+        require(all(torch.equal(o, out[0]) for o in out),
+                "paged_attention on two streams: repeated launches differ")
+    shared = torch.zeros(4096, dtype=torch.int32, device=DEVICE)
+    per_stream, pa.counters = pa.counters, lambda device, n, stream: shared
+    try:
+        fault_errs, fault_outs = run()
+    finally:
+        pa.counters = per_stream
+    return {"launches_per_stream": launches, "max_row_rel_err": errs,
+            "tolerance_row": TOL_ROW,
+            "shared_buffer_fault": {
+                "max_row_rel_err": fault_errs,
+                "beyond_tolerance": [not e <= TOL_ROW for e in fault_errs],
+                "repeats_differ": [not all(torch.equal(o, out[0])
+                                           for o in out)
+                                   for out in fault_outs]}}
+
+
 def kernel_scaling(gen, shapes):
     """Where the two redesigned kernels' time goes at the serving widths:
     paged_attention over the serving table width with 1-token sequences
@@ -571,12 +653,12 @@ def logits_fault(model, prompt):
     sound = tf.forward(model, toks, pos, impl="ref", last_only=True)
     scan, calls = ref.ssm_scan, []
 
-    def skip_last_update(xs, dt, A, Bm, Cm):
+    def skip_last_update(xs, dt, A, Bm, Cm, h0=None):
         if not calls:
             dt = dt.clone()
             dt[:, -1] = 0
         calls.append(1)
-        return scan(xs, dt, A, Bm, Cm)
+        return scan(xs, dt, A, Bm, Cm, h0)
 
     ref.ssm_scan = skip_last_update
     try:
@@ -722,28 +804,52 @@ def sfu_rate():
     return sms * SFU_PER_CLOCK_PER_SM * float(out[0]) * 1e6, sms, float(out[0])
 
 
-def check_scan_serving_shape(model, prompt):
-    """ssm_scan against its plain version at the first prompt's scan
-    inputs: every output row within TOL_SCAN_ROW, every planted fault
-    beyond it; times and bound."""
-    args = first_scan_inputs(model, prompt)
-    got, want = ss.ssm_scan(*args), ref.ssm_scan(*args)
+def scan_errors(what, got, want, faults):
+    """Errors of the scan outputs ``got`` against ``want`` (y, final h):
+    fails beyond TOL_SCAN_ROW of any output row, or when a planted fault
+    (``faults``: name -> the plain outputs under it) stays within it."""
     abs_err = max(excess(g, w, TOL_SCAN)[1] for g, w in zip(got, want))
     row = max(row_rel_err(g, w) for g, w in zip(got, want))
-    require(row <= TOL_SCAN_ROW, f"ssm_scan row error {row} > {TOL_SCAN_ROW}")
+    require(row <= TOL_SCAN_ROW,
+            f"ssm_scan {what}: row error {row} > {TOL_SCAN_ROW}")
     seen = {f: max(row_rel_err(g, w) for g, w in zip(out, want))
-            for f, out in scan_faults(*args, want[0]).items()}
-    require(min(seen.values()) > TOL_SCAN_ROW,
-            f"ssm_scan: a planted fault stays within {TOL_SCAN_ROW}: {seen}")
+            for f, out in faults.items()}
+    require(all(e > TOL_SCAN_ROW for e in seen.values()), f"ssm_scan {what}: "
+            f"a planted fault stays within {TOL_SCAN_ROW}: {seen}")
+    return {"max_abs_err": abs_err, "max_row_rel_err": row,
+            "fault_row_rel_err": seen}
+
+
+def check_scan_serving_shape(gen, model, prompt):
+    """ssm_scan against its plain version at the first prompt's scan
+    inputs, and again with a random A (as ``scan_inputs`` draws it): whole,
+    and in two halves, the second from the first's final state; every
+    output row within TOL_SCAN_ROW, every planted fault beyond it (for the
+    halves: h0 ignored, the state reset to zero).  Times the kernel and
+    the plain scan; the bound, the kernel's share of it, and the lane and
+    stage counts of the instance that ran."""
+    args = first_scan_inputs(model, prompt)
+    ds = args[2].shape[1]
+    rand_a = -torch.exp(randn(gen, *args[2].shape) * 0.3)
+    rec = {}
+    for name, a in (("model_A", args), ("random_A", args[:2] + (rand_a,)
+                                        + args[3:])):
+        want = ref.ssm_scan(*a)
+        faults = scan_faults(*a, want[0])
+        rec[name] = {**scan_errors(name, ss.ssm_scan(*a), want, faults),
+                     "from_h0": scan_errors(
+                         f"{name} from h0", scan_halves(*a), want,
+                         {"h0_ignored": faults["state_reset"]}),
+                     "ms": time_ms(lambda: ss.ssm_scan(*a))}
     rate, sms, mhz = sfu_rate()
     bound, by = scan_work(args[0], args[2], rate)
-    return {"max_abs_err": abs_err, "max_row_rel_err": row,
-            "fault_row_rel_err": seen,
-            "ms": time_ms(lambda: ss.ssm_scan(*args)),
-            "plain_ms": host_ms(lambda: ref.ssm_scan(*args)),
+    main = rec.pop("model_A")
+    return {**main, **rec, "plain_ms": host_ms(lambda: ref.ssm_scan(*args)),
             "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "bound_share": bound / main["ms"], "lanes": ss.LANES[ds],
+            "stages": ss.STAGES,
             "sfu_per_s": rate, "sms": sms, "max_sm_mhz": mhz,
-            "shape": f"xs{list(args[0].shape)} ds {args[2].shape[1]} f32"}
+            "shape": f"xs{list(args[0].shape)} ds {ds} f32"}
 
 
 KERNEL_FAMILIES = {"flash_kernel": "flash_prefill",
@@ -839,6 +945,8 @@ def main():
         say("kernels", phase="main_path_shapes", tolerance_bf16=TOL_BF16,
             tolerance_bf16_row=TOL_ROW, tolerance_fused_f32=TOL_FUSED,
             f_decodes=F_DECODES, **recs)
+        say("kernels", phase="two_streams", kernel="paged_attention",
+            **check_two_streams(gen, shapes))
         say("kernels", phase="scaling", config=cfg.name,
             **kernel_scaling(gen, shapes))
 
@@ -856,7 +964,7 @@ def main():
             **jamba_attn)
         model = init_full(cfg)
         recs["ssm_scan"] = check_scan_serving_shape(
-            model, serving_requests(cfg)[0].prompt)
+            gen, model, serving_requests(cfg)[0].prompt)
         say("kernels", phase="ssm_scan_serving_shape",
             tolerance_row=TOL_SCAN_ROW, **recs["ssm_scan"])
         launches["jamba-period"] = serve_full(model)
@@ -909,8 +1017,10 @@ def main():
                         "f32_test_shapes_max_abs_err": worst_f32[name]})
         if name in worst_bf16:
             kernels[-1]["bf16_test_shapes"] = worst_bf16[name]
-        if "splits" in r:
-            kernels[-1]["splits"] = r["splits"]
+        for k in ("splits", "bound_share", "lanes", "stages", "random_A",
+                  "from_h0"):
+            if k in r:
+                kernels[-1][k] = r[k]
         if name in jamba_attn:
             j = jamba_attn[name]
             kernels[-1]["at_jamba_shapes"] = {

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the tensor-core prefill tile and the
-// split decode tile: 16-byte cp.async with zero fill, mbarriers, proxy
-// fences, wgmma shared-memory
-// descriptors and the wgmma products themselves, written as inline PTX.
+// Hopper (sm_90a) building blocks of the tensor-core prefill tile, the
+// split decode tile and the selective scan: 16- and 4-byte cp.async with
+// zero fill, mbarriers, proxy fences, wgmma shared-memory descriptors and
+// the wgmma products themselves, written as inline PTX.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +20,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+// 4 bytes, for rows that are not 16-byte aligned; zero-filled when !ok.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

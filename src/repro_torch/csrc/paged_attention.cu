@@ -23,9 +23,9 @@
 // Each split writes a float32 partial (m, l, acc) to a workspace the
 // wrapper allocates; the last CTA of a (sequence, kv head), found with an
 // atomic counter behind __threadfence, merges the partials in split order
-// and writes o.  One launch, no host sync.  The counters are per device
-// and must not be shared by launches that run at the same time on two
-// streams.
+// and writes o.  One launch, no host sync.  The counters must not be
+// shared by launches that run at the same time: the wrapper keeps one
+// buffer per device and stream.
 #include "attn_tiles.cuh"
 
 template <typename T, int D>

@@ -66,10 +66,11 @@ def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
     return o_p.transpose(1, 2), o_d
 
 
-def ssm_scan(xs, dt, A, Bm, Cm):
-    """Selective scan from a zero state: xs/dt (B,L,din) f32, A (din,ds),
-    Bm/Cm (B,L,ds) f32 -> y (B,L,din) f32, h_last (B,din,ds) f32."""
-    return _ssm.ssm_scan(xs, dt, A, Bm, Cm)
+def ssm_scan(xs, dt, A, Bm, Cm, *, h0=None):
+    """Selective scan from h0 (B,din,ds) f32, or from a zero state:
+    xs/dt (B,L,din) f32, A (din,ds), Bm/Cm (B,L,ds) f32 -> y (B,L,din)
+    f32, h_last (B,din,ds) f32."""
+    return _ssm.ssm_scan(xs, dt, A, Bm, Cm, h0)
 
 
 LAUNCH_COUNTED = {"flash_prefill": _fp.flash_prefill,

@@ -10,13 +10,14 @@ The kernel splits each sequence's keys over ``split_count`` CTAs of
 ``SPLIT_KEYS`` keys each; the count comes from the block table's width
 and the page size, shapes the host holds, so no launch waits on
 ``seq_lens``.  The wrapper allocates the float32 workspace of the
-splits' partials per call and keeps one zeroed counter buffer per device,
-which the kernel leaves zeroed.
+splits' partials per call and keeps one zeroed counter buffer per device
+and stream, which the kernel leaves zeroed: launches on one stream run in
+order and share it, launches on two streams never do.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -27,7 +28,7 @@ MAX_G = 8          # query heads per kv head a decode CTA holds (MAX_G)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_I, _I] + [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]
-_counters: Dict[torch.device, torch.Tensor] = {}
+_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def split_count(max_pages: int, page: int) -> int:
@@ -36,27 +37,31 @@ def split_count(max_pages: int, page: int) -> int:
     return max(1, -(-max_pages * page // SPLIT_KEYS))
 
 
-def counters(device, n: int) -> torch.Tensor:
-    """The device's zeroed int32 arrival counters, at least ``n`` of them.
-    Kernels on one stream share them: each launch leaves them at 0."""
-    buf = _counters.get(device)
+def counters(device, n: int, stream: int) -> torch.Tensor:
+    """The zeroed int32 arrival counters of ``stream`` (a raw CUDA stream
+    handle; 0 is the default stream) on ``device``, at least ``n`` of them.
+    Kernels on one stream share them, one after the other: each launch
+    leaves them at 0.  A larger buffer replaces a stream's own, allocated
+    on that stream, so its launches still run in order behind it."""
+    key = (torch.device(device), stream)
+    buf = _counters.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _counters[device] = buf
+        _counters[key] = buf
     return buf
 
 
-def split_args(q, k_pages, block_tables):
+def split_args(q, k_pages, block_tables, stream: int):
     """The split decode tiles' launch arguments for q (B,Hq,D) over
-    k_pages (N,page,Hkv,D): the partials' float32 workspace, the counters
-    and the split count.  The caller holds the workspace until the launch
-    is queued."""
+    k_pages (N,page,Hkv,D), launched on ``stream``: the partials' float32
+    workspace, the stream's counters and the split count.  The caller
+    holds the workspace until the launch is queued."""
     B, Hq, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     splits = split_count(block_tables.shape[1], page)
     part = torch.empty(B * Hkv * splits * (Hq // Hkv) * (D + 2),
                        dtype=torch.float32, device=q.device)
-    return part, counters(q.device, B * Hkv), splits
+    return part, counters(q.device, B * Hkv, stream), splits
 
 
 def check_decode(q, k_pages, v_pages, block_tables, seq_lens) -> None:
@@ -100,12 +105,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     o = torch.empty_like(q)
     if B == 0:
         return o
-    part, count, splits = split_args(q, k_pages, block_tables)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, count, splits = split_args(q, k_pages, block_tables, stream)
     fn = build.entry("paged_attention", _ARGTYPES)
     err = fn(code, D, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), seq_lens.data_ptr(), o.data_ptr(),
-             part.data_ptr(), count.data_ptr(), B, Hq, Hkv, page, block_tables.shape[1], splits,
-             1.0 / D ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+             part.data_ptr(), count.data_ptr(), B, Hq, Hkv, page,
+             block_tables.shape[1], splits, 1.0 / D ** 0.5, stream)
     build.check("paged_attention", err)
     paged_attention.launches += 1
     return o

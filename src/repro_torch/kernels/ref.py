@@ -68,20 +68,22 @@ def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
     return o_p, o_d
 
 
-def ssm_scan(xs, dt, A, Bm, Cm):
-    """Sequential (token-by-token) selective scan from a zero state:
+def ssm_scan(xs, dt, A, Bm, Cm, h0=None):
+    """Sequential (token-by-token) selective scan from h0, or from a zero
+    state when h0 is None:
     h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t, y_t = h_t . C_t.
 
-    xs/dt (B,L,din) f32; A (din,ds) f32; Bm/Cm (B,L,ds) f32.
-    Returns y (B,L,din) f32, h_last (B,din,ds) f32.
+    xs/dt (B,L,din) f32; A (din,ds) f32; Bm/Cm (B,L,ds) f32; h0
+    (B,din,ds).  Returns y (B,L,din) f32, h_last (B,din,ds) f32.
     """
     B, L, din = xs.shape
     h = torch.zeros(B, din, A.shape[1], device=xs.device,
-                    dtype=torch.float32)
+                    dtype=torch.float32) if h0 is None else h0.float()
     ys = []
     for t in range(L):
         a = torch.exp(dt[:, t, :, None] * A)
         b = (dt[:, t] * xs[:, t])[..., None] * Bm[:, t, None]
         h = a * h + b
         ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
-    return torch.stack(ys, dim=1), h
+    y = torch.stack(ys, dim=1) if ys else xs.new_zeros(B, 0, din)
+    return y, h

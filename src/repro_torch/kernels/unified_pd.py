@@ -127,7 +127,8 @@ def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
                                 float(f_decode)), q_p.device)
     o_p = torch.empty_like(q_p)
     o_d = torch.empty_like(q_d)
-    part, count, splits = split_args(q_d, k_pages, block_tables)
+    stream = torch.cuda.current_stream(q_p.device).cuda_stream
+    part, count, splits = split_args(q_d, k_pages, block_tables, stream)
     fn = build.entry("unified_pd", _ARGTYPES)
     err = fn(code, D, desc.data_ptr(), desc.shape[0], q_p.data_ptr(),
              k_p.data_ptr(), v_p.data_ptr(), o_p.data_ptr(),
@@ -136,7 +137,7 @@ def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
              k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
              seq_lens.data_ptr(), o_d.data_ptr(), part.data_ptr(),
              count.data_ptr(), page, max_pages, splits, 1.0 / D ** 0.5,
-             torch.cuda.current_stream(q_p.device).cuda_stream)
+             stream)
     build.check("unified_pd", err)
     unified_pd.launches += 1
     return o_p, o_d

@@ -3,8 +3,10 @@
 Counterpart of ``repro/models/mamba.py``.  Prefill runs the selective scan
 on the path the caller chooses: ``kernel`` (``ops.ssm_scan``, the CUDA
 kernel on the card; its plain version on a CPU tensor) or ``ref`` (the
-plain sequential scan, ``ref.ssm_scan``).  Both start from a zero state:
-a whole prompt is prefilled at once.  Decode is the reference's O(1)
+plain sequential scan, ``ref.ssm_scan``).  Both start from a zero state,
+or from a given ``state`` (conv window and SSM state) to continue a
+sequence, as the reference's ``mamba_forward(state=)`` does; the serving
+path prefills whole prompts, from zero.  Decode is the reference's O(1)
 single-token step in plain PyTorch; the reference has no kernel for it
 either.
 
@@ -61,43 +63,56 @@ def ssm_inputs(p: Mamba, cfg, xs):
     return dt, Bm.float(), Cm.float()
 
 
-def causal_conv(p: Mamba, cfg, x):
-    """Depthwise causal conv from a zero window.  x (B, L, din)."""
+def _window(cfg, x, conv):
+    """x (B, L, din) behind the d_conv-1 inputs before it: ``conv``
+    (B, d_conv-1, din), or zeros at the start of a sequence."""
+    if conv is None:
+        return F.pad(x, (0, 0, cfg.mamba.d_conv - 1, 0))
+    return torch.cat([conv.to(x.dtype), x], dim=1)
+
+
+def causal_conv(p: Mamba, cfg, x, conv=None):
+    """Depthwise causal conv of x (B, L, din), from the window ``conv``
+    (B, d_conv-1, din) or from zeros."""
     k, L = cfg.mamba.d_conv, x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = _window(cfg, x, conv)
     return sum(xp[:, i:i + L] * p.conv_w[i] for i in range(k)) + p.conv_b
 
 
-def conv_tail(cfg, xs_raw):
-    """The last d_conv-1 pre-activation conv inputs (zero-padded on the
-    left when the prompt is shorter), for decode to continue from."""
-    k = cfg.mamba.d_conv - 1
-    full = F.pad(xs_raw, (0, 0, k, 0))
-    return full[:, full.shape[1] - k:]
+def conv_tail(cfg, xs_raw, conv=None):
+    """The last d_conv-1 pre-activation conv inputs, for decode to
+    continue from; taken from the window ``conv`` (or zeros) too when the
+    prompt is shorter."""
+    full = _window(cfg, xs_raw, conv)
+    return full[:, full.shape[1] - (cfg.mamba.d_conv - 1):]
 
 
-def scan_args(p: Mamba, cfg, xz):
-    """The selective scan's arguments for whole prompts from a zero state.
-    xz (B, L, 2 din), the ``in_proj`` output.  Returns xs (B, L, din), dt,
-    A (din, ds), Bm, Cm (B, L, ds), all float32."""
-    xs = F.silu(causal_conv(p, cfg, xz[..., :cfg.d_inner]))
+def scan_args(p: Mamba, cfg, xz, conv=None):
+    """The selective scan's arguments for prompts (or their next chunks).
+    xz (B, L, 2 din), the ``in_proj`` output; ``conv`` the window before
+    it, or None at the start.  Returns xs (B, L, din), dt, A (din, ds),
+    Bm, Cm (B, L, ds), all float32."""
+    xs = F.silu(causal_conv(p, cfg, xz[..., :cfg.d_inner], conv))
     dt, Bm, Cm = ssm_inputs(p, cfg, xs)
     return xs.float(), dt, -torch.exp(p.A_log), Bm, Cm
 
 
-def prefill_mixer(p: Mamba, cfg, xz, *, impl: str):
-    """The mixer between its projections over whole prompts.
+def prefill_mixer(p: Mamba, cfg, xz, *, impl: str, state=None):
+    """The mixer between its projections over whole prompts, or over their
+    next tokens from ``state`` {"conv", "ssm"} as ``decode_mixer`` takes it.
     xz (B, L, 2 din), the ``in_proj`` output.  Returns the gated y
     (B, L, din) in xz's dtype and the final state {"conv", "ssm"}."""
     check_impl(impl)
     din = cfg.d_inner
     xs_raw, z = xz[..., :din], xz[..., din:]
-    args = scan_args(p, cfg, xz)
+    conv, h0 = (None, None) if state is None else (state["conv"],
+                                                   state["ssm"])
+    args = scan_args(p, cfg, xz, conv)
     scan = ops.ssm_scan if impl == "kernel" else ref.ssm_scan
-    y, h_last = scan(*args)
+    y, h_last = scan(*args, h0=h0)
     y = y + args[0] * p.D
     y = y.to(xz.dtype) * F.silu(z)
-    return y, {"conv": conv_tail(cfg, xs_raw), "ssm": h_last}
+    return y, {"conv": conv_tail(cfg, xs_raw, conv), "ssm": h_last}
 
 
 def decode_mixer(p: Mamba, cfg, xz, state):
@@ -119,9 +134,11 @@ def decode_mixer(p: Mamba, cfg, xz, state):
     return y, {"conv": conv_in[:, 1:], "ssm": h}
 
 
-def mamba_forward(p: Mamba, cfg, x, *, impl: str = "kernel"):
-    """Prefill.  x (B, L, d) -> (out (B, L, d), final state)."""
-    y, state = prefill_mixer(p, cfg, x @ p.in_proj, impl=impl)
+def mamba_forward(p: Mamba, cfg, x, *, impl: str = "kernel", state=None):
+    """Prefill from a zero state, or from ``state`` {"conv" (B, d_conv-1,
+    din), "ssm" (B, din, ds) f32}.  x (B, L, d) -> (out (B, L, d), final
+    state)."""
+    y, state = prefill_mixer(p, cfg, x @ p.in_proj, impl=impl, state=state)
     return y @ p.out_proj, state
 
 

@@ -6,6 +6,7 @@ the Pallas kernels run in interpret mode, on the same numpy-seeded inputs.
 The CUDA kernels themselves are held against the plain versions on the
 card by ``chip_smoke.py``.
 """
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -265,12 +266,28 @@ def test_split_counters_are_zeroed_and_grow():
     """The per-device arrival counters start at zero, are reused while
     large enough and replaced by a larger zeroed buffer when not."""
     dev = torch.device("cpu")
-    a = counters(dev, 10)
+    a = counters(dev, 10, stream=0)
     assert a.dtype == torch.int32 and a.numel() >= 10 and not a.any()
-    assert counters(dev, 10) is a
-    b = counters(dev, a.numel() + 1)
+    assert counters(dev, 10, stream=0) is a
+    b = counters(dev, a.numel() + 1, stream=0)
     assert b.numel() > a.numel() and not b.any()
-    assert counters(dev, 5) is b
+    assert counters(dev, 5, stream=0) is b
+
+
+def test_split_counters_are_per_stream():
+    """Two streams of one device get distinct zeroed counter buffers, and
+    each stream reuses its own; the default stream (0) has a third."""
+    dev = torch.device("cpu")
+    a, b = counters(dev, 10, stream=11), counters(dev, 10, stream=12)
+    assert a is not b and a.data_ptr() != b.data_ptr()
+    assert not a.any() and not b.any()
+    assert counters(dev, 10, stream=11) is a
+    assert counters(dev, 10, stream=12) is b
+    default = counters(dev, 10, stream=0)
+    assert default is not a and default is not b
+    grown = counters(dev, a.numel() + 1, stream=11)
+    assert grown.numel() > a.numel() and not grown.any()
+    assert counters(dev, 10, stream=12) is b
 
 
 def test_decode_check_rejects_query_groups_past_the_tile():

@@ -31,6 +31,7 @@ from repro.models import transformer as jax_tf
 from repro_torch.config import get_config, get_reduced_config, replace
 from repro_torch.convert import model_from_reference
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssm_scan as ssm_scan_mod
 from repro_torch.kernels.ssm_scan import check_scan
 from repro_torch.launch import serve_real
 from repro_torch.models import layers, mamba
@@ -99,6 +100,48 @@ def test_ssm_scan_plain_matches_reference(B, L, din, ds):
                                        **SCAN_TOL)
 
 
+@pytest.mark.parametrize("B,L,din,ds", [(2, 64, 32, 8), (1, 128, 64, 16),
+                                        (2, 96, 48, 4), (1, 60, 40, 8)])
+def test_ssm_scan_from_h0_matches_reference(B, L, din, ds):
+    """The port's plain scan and ``ops.ssm_scan`` from a given state h0
+    == the reference's sequential and chunked scans from the same h0, in
+    float32 to the kernels' 3e-5."""
+    rs = np.random.RandomState(L + 1)
+    xs = _normal(rs, B, L, din)
+    dt = np.logaddexp(0, _normal(rs, B, L, din)).astype(np.float32)
+    A = -np.exp(_normal(rs, din, ds) * 0.3)
+    Bm, Cm = _normal(rs, B, L, ds), _normal(rs, B, L, ds)
+    h0 = _normal(rs, B, din, ds)
+    args = [jnp.asarray(a) for a in (xs, dt, A, Bm, Cm)]
+    wants = [jax_ref.ssm_scan(*args, h0=jnp.asarray(h0)),
+             jax_mamba.ssm_scan_ref(*args, h0=jnp.asarray(h0))]
+    targs = [torch.from_numpy(a) for a in (xs, dt, A, Bm, Cm)]
+    th0 = torch.from_numpy(h0)
+    gots = [ref.ssm_scan(*targs, h0=th0), ops.ssm_scan(*targs, h0=th0)]
+    for y, h in gots:
+        for y_want, h_want in wants:
+            np.testing.assert_allclose(y.numpy(), np.asarray(y_want),
+                                       atol=3e-5, rtol=3e-5)
+            np.testing.assert_allclose(h.numpy(), np.asarray(h_want),
+                                       atol=3e-5, rtol=3e-5)
+    # the state is read, not written: h0 is unchanged
+    np.testing.assert_array_equal(th0.numpy(), h0)
+
+
+def test_scan_input_checks_reject_a_bad_h0():
+    """h0 must be float32 (B, din, ds); the check refuses anything else
+    before a launch."""
+    xs, A, Bm = torch.zeros(2, 5, 40), torch.zeros(40, 8), torch.zeros(2, 5, 8)
+    check_scan(xs, xs, A, Bm, Bm, torch.zeros(2, 40, 8))
+    with pytest.raises(ValueError, match="h0"):
+        check_scan(xs, xs, A, Bm, Bm, torch.zeros(1, 40, 8))
+    with pytest.raises(ValueError, match="h0"):
+        check_scan(xs, xs, A, Bm, Bm, torch.zeros(2, 40, 16))
+    with pytest.raises(TypeError, match="float32"):
+        check_scan(xs, xs, A, Bm, Bm, torch.zeros(2, 40, 8,
+                                                  dtype=torch.bfloat16))
+
+
 def test_scan_input_checks_reject_what_the_kernel_cannot_take():
     """The checks run before a launch; they need no card to be tested."""
     xs, A, Bm = torch.zeros(1, 5, 40), torch.zeros(40, 8), torch.zeros(1, 5, 8)
@@ -110,6 +153,24 @@ def test_scan_input_checks_reject_what_the_kernel_cannot_take():
         check_scan(xs, xs, A, Bm, torch.zeros(1, 4, 8))
     with pytest.raises(TypeError, match="float32"):
         check_scan(xs, xs.bfloat16(), A, Bm, Bm)
+
+
+def test_scan_operands_are_made_dense_and_aligned():
+    """B and C are sliced out of one projection, so their rows may start
+    off a 16-byte boundary; the kernel takes only dense, aligned operands,
+    so the wrapper copies such a view and passes a dense one as it is."""
+    proj = torch.arange(2 * 5 * 21, dtype=torch.float32).reshape(2, 5, 21)
+    Bm = proj[..., 5:13]          # strided, starting 20 bytes in
+    dense = ssm_scan_mod._dense(Bm)
+    assert dense.is_contiguous() and dense.data_ptr() % 16 == 0
+    assert torch.equal(dense, Bm)
+    flat = torch.arange(41, dtype=torch.float32)[1:]   # dense, 4 bytes in
+    moved = ssm_scan_mod._dense(flat)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, flat)
+    whole = torch.zeros(2, 5, 8)
+    assert ssm_scan_mod._dense(whole) is whole
+    for ds in ssm_scan_mod.D_STATES:
+        assert ds % ssm_scan_mod.LANES[ds] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +223,37 @@ def test_mamba_forward_and_decode_match_reference(mixer, impl, L):
         for k in ("conv", "ssm"):
             np.testing.assert_allclose(state[k].numpy(),
                                        np.asarray(jstate[k]), **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "ref"])
+@pytest.mark.parametrize("L", [9, 2])       # 2 < d_conv - 1
+def test_mamba_forward_from_state_matches_reference(mixer, impl, L):
+    """A prompt's next L tokens from the state its first 7 left (conv
+    window and SSM state) == the reference's ``mamba_forward(state=)``:
+    output and final state; and == the port's prefill of all 7 + L tokens
+    at once."""
+    p, jp, cfg, jcfg = mixer
+    rs = np.random.RandomState(20 + L)
+    x0, x1 = _normal(rs, 2, 7, cfg.d_model), _normal(rs, 2, L, cfg.d_model)
+    _, jstate = jax_mamba.mamba_forward(jp, jcfg, jnp.asarray(x0),
+                                        return_state=True, impl="ref")
+    want, jnew = jax_mamba.mamba_forward(jp, jcfg, jnp.asarray(x1),
+                                         state=jstate, return_state=True,
+                                         impl="ref")
+    state = {k: _t(v) for k, v in jstate.items()}
+    got, new = mamba.mamba_forward(p, cfg, torch.from_numpy(x1), impl=impl,
+                                   state=state)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    for k in ("conv", "ssm"):
+        np.testing.assert_allclose(new[k].numpy(), np.asarray(jnew[k]),
+                                   **LOGIT_TOL)
+    whole, whole_state = mamba.mamba_forward(
+        p, cfg, torch.from_numpy(np.concatenate([x0, x1], 1)), impl=impl)
+    np.testing.assert_allclose(got.numpy(), whole[:, 7:].numpy(),
+                               **LOGIT_TOL)
+    for k in ("conv", "ssm"):
+        np.testing.assert_allclose(new[k].numpy(), whole_state[k].numpy(),
+                                   **LOGIT_TOL)
 
 
 # ---------------------------------------------------------------------------
