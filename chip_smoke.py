@@ -20,9 +20,15 @@ the result line:
                bfloat16; ssm_scan also at ragged shapes, in two halves,
                the second from the first's final state (h0);
                paged_attention on two streams at once, each launch against
-               its plain version; times each kernel, its plain version,
-               one PyTorch library call where one computes the same
-               function, and the least time the card could take (bound);
+               its plain version, and unified_pd beside paged_attention on
+               two streams; times each kernel, its plain version, one
+               PyTorch library call where one computes the same function,
+               and the least time the card could take (bound); and, at the
+               fused step's shapes, the persistent unified_pd's grid, the
+               SM ids its CTAs ran on, and at each f_decode its time and
+               (from its trace) when its decode and prefill tiles finished,
+               beside flash_prefill and paged_attention timed alone, summed
+               and on two streams at once;
   4. serve   — full-width granite-8b (36 layers, random seeded weights,
                bf16) serves 8 requests through serve_real's loop; exactly
                its three attention kernels must have launched, the KV pool
@@ -502,21 +508,151 @@ def check_main_path_shapes(gen, shapes):
                     f"max err {err}")
             fused_err = max(fused_err, err)
     recs["unified_pd"]["fused_vs_standalone_f32_max_err"] = fused_err
+    recs["unified_pd"]["persistent"] = persistent_sweep(fused_args(bf16))
     return recs
+
+
+def traced_ms(run, iters=10):
+    """``run(trace)`` launches unified_pd with a trace.  Over ``iters``
+    launches, each after an L2 flush: the mean times from the first CTA's
+    start to the last decode tile's end and to the last prefill tile's end
+    (ms, the card's global clock), %nsmid, and the SM ids that ran a
+    CTA."""
+    trace = up.new_trace(DEVICE)
+    fresh = trace.clone()
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=DEVICE)
+    run(trace)
+    dec = pre = 0.0
+    sms, nsmid = set(), 0
+    for _ in range(iters):
+        trace.copy_(fresh)
+        flush.zero_()
+        run(trace)
+        tr = trace.tolist()
+        dec += (tr[up.TRACE_DECODE_END] - tr[up.TRACE_START]) / 1e6
+        pre += (tr[up.TRACE_PREFILL_END] - tr[up.TRACE_START]) / 1e6
+        nsmid = max(nsmid, tr[up.TRACE_NSMID])
+        sms |= {64 * w + b for w in range(up.TRACE_LEN - up.TRACE_SM_SET)
+                for b in range(64) if tr[up.TRACE_SM_SET + w] >> b & 1}
+    return dec / iters, pre / iters, nsmid, sms
+
+
+def concurrent_ms(fns):
+    """Device time of the calls ``fns`` launched together, one stream
+    each, from one start event to the end of the last."""
+    streams = [torch.cuda.Stream() for _ in fns]
+
+    def run():
+        go = torch.cuda.Event()
+        go.record()
+        here = torch.cuda.current_stream()
+        for st, fn in zip(streams, fns):
+            st.wait_event(go)
+            with torch.cuda.stream(st):
+                fn()
+        for st in streams:
+            here.wait_stream(st)
+    return time_ms(run)
+
+
+def persistent_sweep(args):
+    """The persistent unified_pd at the fused step's bf16 inputs: its grid
+    and CTAs an SM; at each f_decode in F_DECODES the SMs that take decode
+    first, the kernel's time, and from its trace the decode-done and
+    prefill-done times after its first CTA starts; the SM ids its CTAs ran
+    on (they must be 0 .. SMs-1, which the share is cut from); and the
+    yardsticks at the same inputs: flash_prefill alone on the prefill,
+    paged_attention alone on the decodes, their sum, and the two launched
+    together on two streams."""
+    q_p, q_d, kp, tabs = args[0], args[3], args[4], args[6]
+    Bp, Hq, Sp, D = q_p.shape
+    Hkv, page = kp.shape[2], kp.shape[1]
+    G, splits = Hq // Hkv, pa.split_count(tabs.shape[1], page)
+    tiles = Bp * Hq * -(-Sp // fp.BLOCK_Q) + q_d.shape[0] * Hkv * splits
+    ctas = up.ctas_per_sm(build.dtype_code(q_p), D, G, splits)
+    sms = up.sm_count(q_p.device)
+    sweep, seen, nsmid = {}, set(), 0
+    for f in F_DECODES:
+        dec, pre, n, ids = traced_ms(
+            lambda tr: up.unified_pd(*args, f_decode=f, trace=tr))
+        seen |= ids
+        nsmid = max(nsmid, n)
+        sweep[str(f)] = {"decode_sms": up.decode_sms(f, sms),
+                         "time_ms": time_ms(
+                             lambda: up.unified_pd(*args, f_decode=f)),
+                         "decode_done_ms": dec, "prefill_done_ms": pre}
+    require(seen == set(range(sms)), f"unified_pd's CTAs ran on SM ids "
+            f"{sorted(seen)}, not 0..{sms - 1}")
+    flash = time_ms(lambda: fp.flash_prefill(*args[:3]))
+    paged = time_ms(lambda: pa.paged_attention(*args[3:]))
+    both = concurrent_ms([lambda: fp.flash_prefill(*args[:3]),
+                          lambda: pa.paged_attention(*args[3:])])
+    at = sweep[str(SERVE["f_decode"])]["time_ms"]
+    return {"grid": up.grid_size(tiles, ctas, sms), "tiles": tiles,
+            "ctas_per_sm": ctas, "sms": sms, "nsmid": nsmid,
+            "smid_span": [min(seen), max(seen), len(seen)],
+            "f_decode": sweep,
+            "flash_prefill_alone_ms": flash, "paged_attention_alone_ms": paged,
+            "alone_sum_ms": flash + paged, "two_streams_ms": both,
+            "no_slower_than_sum": at <= flash + paged,
+            "decode_done_1_below_0_1": sweep["1.0"]["decode_done_ms"]
+            < sweep["0.1"]["decode_done_ms"]}
+
+
+def spin_gated(launchers, launches):
+    """Each (stream, fn) of ``launchers`` called ``launches`` times,
+    interleaved, every call on its stream, all queued behind a spin on
+    every stream so that the queues drain together.  The spin starts at
+    about 20 ms and doubles until it is still running on every stream once
+    everything is queued.  Returns each launcher's outputs."""
+    cycles = 20 * SLEEP_CYCLES
+    while True:
+        outs = [[] for _ in launchers]
+        torch.cuda.synchronize()
+        spun = []
+        for st, _ in launchers:
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(cycles)
+                spun.append(torch.cuda.Event())
+                spun[-1].record()
+        for _ in range(launches):
+            for (st, fn), out in zip(launchers, outs):
+                with torch.cuda.stream(st):
+                    out.append(fn())
+        overlapped = not any(ev.query() for ev in spun)
+        torch.cuda.synchronize()
+        if overlapped:
+            return outs
+        cycles *= 2
+        require(cycles < 1 << 32, "host enqueue outran a 2 s spin")
+
+
+def rows_and_repeats(what, outs, want):
+    """The worst row error of the outputs ``outs`` (a list of tensors or
+    of tuples of them) against ``want``; fails beyond TOL_ROW or when two
+    of them differ."""
+    outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(row_rel_err(g, w) for o in outs for g, w in zip(o, want))
+    require(err <= TOL_ROW, f"{what}: row error {err} > {TOL_ROW}")
+    require(all(torch.equal(g, g0) for o in outs for g, g0 in zip(o, outs[0])),
+            f"{what}: repeated launches differ")
+    return err
 
 
 def check_two_streams(gen, shapes, launches=20):
     """paged_attention on two streams at once, each with its own inputs
     (the serving decode batch, and one of about half its lengths),
-    ``launches`` times each, interleaved, queued behind a spin on both
-    streams so that the two queues drain together.  Every output within
-    TOL_ROW of its plain version and equal to its stream's first (the
-    merge order is fixed), and each stream with its own arrival counters.
-    Then the same run with one counter buffer planted for both streams,
-    the fault that per-stream counters repair: its errors are recorded,
-    not required, since whether the two launches race on one (sequence,
-    kv head) counter depends on how the card schedules them.  Returns the
-    errors."""
+    ``launches`` times each (``spin_gated``).  Every output within TOL_ROW
+    of its plain version and equal to its stream's first (the merge order
+    is fixed), and each stream with its own arrival counters.  Then the
+    same run with one counter buffer planted for both streams, the fault
+    that per-stream counters repair: its errors are recorded, not
+    required, since whether the two launches race on one (sequence, kv
+    head) counter depends on how the card schedules them.  Then
+    unified_pd, the persistent kernel, on one stream beside
+    paged_attention on the other, which holds some of its SMs while it
+    runs: both within TOL_ROW, repeats equal.  Returns the errors."""
     Hq, Hkv, D, page = (shapes[k] for k in ("Hq", "Hkv", "D", "page"))
     lens = shapes["decode_lens"]
     decs = [decode_inputs(gen, ls, Hq, Hkv, D, page, torch.bfloat16)
@@ -525,39 +661,37 @@ def check_two_streams(gen, shapes, launches=20):
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
 
     def run():
-        outs = ([], [])
-        torch.cuda.synchronize()
-        spun = []
-        for st in streams:
-            with torch.cuda.stream(st):
-                torch.cuda._sleep(20 * SLEEP_CYCLES)     # about 20 ms
-                spun.append(torch.cuda.Event())
-                spun[-1].record()
-        for _ in range(launches):
-            for st, dec, out in zip(streams, decs, outs):
-                with torch.cuda.stream(st):
-                    out.append(pa.paged_attention(*dec))
-        overlapped = not any(ev.query() for ev in spun)
-        torch.cuda.synchronize()
-        require(overlapped, "a spin ended before both streams were queued")
-        return [max(row_rel_err(o, want) for o in out)
-                for out, want in zip(outs, wants)], outs
+        return spin_gated([(st, lambda dec=dec: pa.paged_attention(*dec))
+                           for st, dec in zip(streams, decs)], launches)
 
-    errs, outs = run()
+    outs = run()
     bufs = {pa.counters(decs[0][0].device, 1, st.cuda_stream).data_ptr()
             for st in streams}
     require(len(bufs) == 2, "two streams share one counter buffer")
-    for err, out in zip(errs, outs):
-        require(err <= TOL_ROW, f"paged_attention on two streams: row "
-                f"error {err} > {TOL_ROW}")
-        require(all(torch.equal(o, out[0]) for o in out),
-                "paged_attention on two streams: repeated launches differ")
+    errs = [rows_and_repeats("paged_attention on two streams", out, want)
+            for out, want in zip(outs, wants)]
     shared = torch.zeros(4096, dtype=torch.int32, device=DEVICE)
     per_stream, pa.counters = pa.counters, lambda device, n, stream: shared
     try:
-        fault_errs, fault_outs = run()
+        fault_outs = run()
     finally:
         pa.counters = per_stream
+    fault_errs = [max(row_rel_err(o, want) for o in out)
+                  for out, want in zip(fault_outs, wants)]
+
+    fused = (prefill_inputs(gen, 1, Hq, Hkv, shapes["fused_S"], D,
+                            torch.bfloat16)
+             + decode_inputs(gen, shapes["fused_lens"], Hq, Hkv, D, page,
+                             torch.bfloat16))
+    u_outs, p_outs = spin_gated(
+        [(streams[0], lambda: up.unified_pd(*fused,
+                                            f_decode=SERVE["f_decode"])),
+         (streams[1], lambda: pa.paged_attention(*decs[0]))], launches)
+    beside = {"unified_pd": rows_and_repeats(
+                  "unified_pd beside paged_attention", u_outs,
+                  ref.unified_pd(*fused)),
+              "paged_attention": rows_and_repeats(
+                  "paged_attention beside unified_pd", p_outs, wants[0])}
     return {"launches_per_stream": launches, "max_row_rel_err": errs,
             "tolerance_row": TOL_ROW,
             "shared_buffer_fault": {
@@ -565,7 +699,8 @@ def check_two_streams(gen, shapes, launches=20):
                 "beyond_tolerance": [not e <= TOL_ROW for e in fault_errs],
                 "repeats_differ": [not all(torch.equal(o, out[0])
                                            for o in out)
-                                   for out in fault_outs]}}
+                                   for out in fault_outs]},
+            "unified_pd_beside_paged_attention": beside}
 
 
 def kernel_scaling(gen, shapes):
@@ -945,7 +1080,8 @@ def main():
         say("kernels", phase="main_path_shapes", tolerance_bf16=TOL_BF16,
             tolerance_bf16_row=TOL_ROW, tolerance_fused_f32=TOL_FUSED,
             f_decodes=F_DECODES, **recs)
-        say("kernels", phase="two_streams", kernel="paged_attention",
+        say("kernels", phase="two_streams",
+            kernels=["paged_attention", "unified_pd"],
             **check_two_streams(gen, shapes))
         say("kernels", phase="scaling", config=cfg.name,
             **kernel_scaling(gen, shapes))
@@ -1018,14 +1154,15 @@ def main():
         if name in worst_bf16:
             kernels[-1]["bf16_test_shapes"] = worst_bf16[name]
         for k in ("splits", "bound_share", "lanes", "stages", "random_A",
-                  "from_h0"):
+                  "from_h0", "persistent"):
             if k in r:
                 kernels[-1][k] = r[k]
         if name in jamba_attn:
             j = jamba_attn[name]
             kernels[-1]["at_jamba_shapes"] = {
                 k: j[k] for k in ("max_abs_err", "max_row_rel_err", "ms",
-                                  "plain_ms", "bound_ms", "shape", "splits")
+                                  "plain_ms", "bound_ms", "shape", "splits",
+                                  "persistent")
                 if k in j}
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 // Shared attention tiles for the prefill, decode and unified P/D kernels.
 //
-// One CTA of THREADS threads runs one tile:
+// One CTA of THREADS threads runs one tile at a time (the unified kernel's
+// persistent CTAs run many, one after another):
 //   flash_tile_tc - bf16: BQ query rows of one (batch, q-head) against the
 //                   causal (and window) range of keys, in k-blocks of BK
 //                   keys, both products on the tensor cores (wgmma);
@@ -43,6 +44,24 @@ enum TileKind { PREFILL = 0, DECODE = 1 };
 // float32: one (its CUDA-core prefill tile takes 115.5 KB of shared memory).
 template <typename T> struct MinCtas { static constexpr int value = 1; };
 template <> struct MinCtas<__nv_bfloat16> { static constexpr int value = 2; };
+
+// The thread's index in its CTA, for the tiles.  The unified kernel runs
+// its tiles in a loop, and the compiler hoists what a tile computes from
+// threadIdx.x out of the loop, where it holds registers across the tiles
+// of both kinds.  At D = 16 that pushed the bf16 kernel past the 128
+// registers that two CTAs an SM allow, into a spill; %tid.x read with asm
+// volatile cannot be hoisted.  At the other head dims reading it anew
+// spilled instead, so they keep threadIdx.x.
+template <int D>
+__device__ __forceinline__ int tile_thread() {
+  if constexpr (D == 16) {
+    int t;
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+    return t;
+  } else {
+    return threadIdx.x;
+  }
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -196,7 +215,7 @@ __device__ void flash_tile(const PrefillArgs& a, int b, int h, int qi,
   float* Vs = Ks + BK * DP;
   float* Ps = Vs + BK * D;
 
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+  const int t = tile_thread<D>(), tx = t % 16, ty = t / 16;
   const int kvh = h / (a.Hq / a.Hkv);
   const int q0 = qi * BQ;
   const T* q = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
@@ -369,19 +388,31 @@ __device__ __forceinline__ bool key_visible(int kpos, int qpos, int S,
 // stage through its `empty` barrier.  Only the diagonal block and the
 // window and ragged edges are masked.  Keys past S are zero-filled and
 // masked, rows past S are computed but never stored.
+// The tensor-core tile's shared memory: Q at the first 1024-byte boundary,
+// then STAGES K stages, STAGES V stages, and the barriers full[STAGES],
+// empty[STAGES].
+template <int D>
+__device__ __forceinline__ uint32_t flash_tc_q(void* smem_raw) {
+  return (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
+}
+template <int D>
+__device__ __forceinline__ uint32_t flash_tc_bars(void* smem_raw) {
+  return flash_tc_q<D>(smem_raw) + (BQ + 2 * STAGES * BK) * D * 2;
+}
+
 template <int D>
 __device__ void flash_tile_tc(const PrefillArgs& a, int b, int h, int qi,
                               void* smem_raw) {
   static_assert(D % 16 == 0 && D >= 16 && D <= 128, "D in {16, 32, 64, 128}");
   using bf16 = __nv_bfloat16;
   constexpr int TILE = BK * D * 2, CH = D / 8;  // bytes; 16-byte chunks/row
-  const uint32_t sQ = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = flash_tc_q<D>(smem_raw);
   const uint32_t sK = sQ + BQ * D * 2, sV = sK + STAGES * TILE;
-  const uint32_t bars = sV + STAGES * TILE;  // full[STAGES], empty[STAGES]
+  const uint32_t bars = flash_tc_bars<D>(smem_raw);
   const auto full = [&](int s) { return bars + 8 * s; };
   const auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
 
-  const int t = threadIdx.x;
+  const int t = tile_thread<D>();
   const int kvh = h / (a.Hq / a.Hkv);
   const int q0 = qi * BQ;
   const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
@@ -606,7 +637,7 @@ __device__ void paged_tile(const DecodeArgs& a, int b, int kvh, int split,
   float* wts = reinterpret_cast<float*>(rows + SPLIT);       // [splits][G]
   int* last = reinterpret_cast<int*>(wts + a.splits * G);
 
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int t = tile_thread<D>(), lane = t % 32, warp = t / 32;
   const int n = a.lens[b];
   const int kbeg = split * SPLIT, nkeys = min(n, kbeg + SPLIT) - kbeg;
   const int tile = b * a.Hkv + kvh;
@@ -831,6 +862,17 @@ __device__ __forceinline__ void prefill_tile(const PrefillArgs& a, int b,
     flash_tile_tc<D>(a, b, h, qi, smem);
   else
     flash_tile<T, D>(a, b, h, qi, static_cast<float*>(smem));
+}
+// Ends a prefill tile in a CTA that runs more tiles: the tensor-core tile's
+// barriers are invalidated, so that the next tile may re-initialise them
+// or use their memory as anything else.  Called by one thread, after a
+// CTA barrier that every thread (both warpgroups) reached past the tile.
+template <typename T, int D>
+__device__ __forceinline__ void prefill_tile_release(void* smem) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const uint32_t bars = flash_tc_bars<D>(smem);
+    for (int s = 0; s < 2 * STAGES; ++s) hopper::mbar_inval(bars + 8 * s);
+  }
 }
 template <typename T, int D>
 __host__ __device__ constexpr int prefill_smem_bytes() {

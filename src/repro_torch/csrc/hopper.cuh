@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core prefill tile, the
-// split decode tile and the selective scan: 16- and 4-byte cp.async with
-// zero fill, mbarriers, proxy fences, wgmma shared-memory descriptors and
-// the wgmma products themselves, written as inline PTX.
+// split decode tile, the persistent unified kernel and the selective scan:
+// 16- and 4-byte cp.async with zero fill, mbarriers, the SM id and the
+// global clock, proxy fences, wgmma shared-memory descriptors and the wgmma
+// products themselves, written as inline PTX.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +46,12 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
+// Ends an mbarrier's life: PTX leaves re-initialising it, or using its
+// 8 bytes for anything else, undefined until it is invalidated.
+__device__ __forceinline__ void mbar_inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
@@ -73,6 +80,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// The SM this thread runs on (%smid), the bound above every SM id
+// (%nsmid), and the device's nanosecond clock (%globaltimer).
+__device__ __forceinline__ uint32_t sm_id() {
+  uint32_t id;
+  asm volatile("mov.u32 %0, %%smid;\n" : "=r"(id));
+  return id;
+}
+__device__ __forceinline__ uint32_t sm_id_bound() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%nsmid;\n" : "=r"(n));
+  return n;
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
 // Makes shared memory written by ordinary stores and cp.async visible to

@@ -51,17 +51,18 @@ def counters(device, n: int, stream: int) -> torch.Tensor:
     return buf
 
 
-def split_args(q, k_pages, block_tables, stream: int):
+def split_args(q, k_pages, block_tables, stream: int, control: int = 0):
     """The split decode tiles' launch arguments for q (B,Hq,D) over
     k_pages (N,page,Hkv,D), launched on ``stream``: the partials' float32
-    workspace, the stream's counters and the split count.  The caller
-    holds the workspace until the launch is queued."""
+    workspace, the stream's counters (B*Hkv, then ``control`` more for
+    the kernel's own use) and the split count.  The caller holds the
+    workspace until the launch is queued."""
     B, Hq, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     splits = split_count(block_tables.shape[1], page)
     part = torch.empty(B * Hkv * splits * (Hq // Hkv) * (D + 2),
                        dtype=torch.float32, device=q.device)
-    return part, counters(q.device, B * Hkv, stream), splits
+    return part, counters(q.device, B * Hkv + control, stream), splits
 
 
 def check_decode(q, k_pages, v_pages, block_tables, seq_lens) -> None:

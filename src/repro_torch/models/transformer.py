@@ -275,7 +275,8 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
 def _ref_unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
                     seq_lens, *, f_decode):
     """``ops.unified_pd``'s layouts over the plain version (f_decode only
-    orders tiles, so the plain version ignores it)."""
+    sets which SMs take which tiles first, so the plain version ignores
+    it)."""
     o_p, o_d = ref.unified_pd(q_p.transpose(1, 2), k_p.transpose(1, 2),
                               v_p.transpose(1, 2), q_d, k_pages, v_pages,
                               block_tables, seq_lens)
