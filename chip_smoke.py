@@ -46,7 +46,20 @@ the result line:
                must exceed); then the same serving
                run as phase 4, which must launch all four kernels, the
                same kernel-vs-plain logits check, in bf16 (3e-2) and again
-               with float32 weights (1e-3), and the same profiled rerun.
+               with float32 weights (1e-3), and the same profiled rerun;
+  6. engine  — the same 8 requests through RAPID-Serve's own engine:
+               ``RapidEngine`` on the ``H100`` spec (one card, 4 decode
+               slots, page 16) whose plans a ``KernelExecutor`` runs on
+               the card, fused steps with the ARM's f_decode; for granite-8b
+               after phase 4, for the Jamba period after phase 5 (before
+               its float32 model).  The KV pool is the one the scheduler
+               sizes, allocated whole; prints its size, the memory left,
+               the launches by kind, TTFT/ITL/tokens per second on the
+               engine's clock beside serve_real's, and the engine's host
+               time per wake.  Exactly the path's kernels must launch, at
+               least one fused step, every request's token count met, pool
+               and state rows reclaimed, no preemption, no rejection; how
+               many requests' tokens equal serve_real's is reported.
 The last two lines are the kernels' JSON record and the result line.
 """
 import gc
@@ -70,6 +83,7 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import unified_pd as up  # noqa: E402
 from repro_torch.kvcache import kv_pages_for  # noqa: E402
+from repro_torch.launch import serve as serve_engine  # noqa: E402
 from repro_torch.launch import serve_real  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -840,7 +854,7 @@ def init_full(cfg):
 def serve_full(model):
     """The serving run: 8 requests after a warm-up, with the launch counts
     of the run alone; then kernel path against plain path.  Returns the
-    launch counts."""
+    launch counts, the run's summary and each request's tokens."""
     cfg = model.cfg
     # warm-up: two short requests exercise prefill, fused and decode steps
     warm = serve_real.make_requests(cfg, 2, SERVE["seed"] + 1, (32, 64),
@@ -874,7 +888,7 @@ def serve_full(model):
         metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS, **errs)
     require(all(e < TOL_LOGITS for e in errs.values()),
             f"logits differ between kernel and plain paths: {errs}")
-    return launches
+    return launches, summary, {r.rid: r.tokens for r in result["requests"]}
 
 
 def jamba_period():
@@ -987,6 +1001,71 @@ def check_scan_serving_shape(gen, model, prompt):
             "shape": f"xs{list(args[0].shape)} ds {ds} f32"}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: RAPID-Serve's engine on the card
+# ---------------------------------------------------------------------------
+
+ENGINE_KEYS = ("tokens", "span_s", "wall_s", "tokens_per_s", "ttft_mean_s",
+               "ttft_p95_s", "itl_mean_s", "itl_p95_s")
+
+
+def engine_full(model, real):
+    """The serving run's requests through ``RapidEngine`` +
+    ``KernelExecutor`` with the pool the scheduler sizes from ``H100``;
+    ``real`` is serve_real's (summary, tokens by rid) of the same
+    requests.  Returns the launch counts of the run."""
+    cfg = model.cfg
+    reqs = serving_requests(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    result = serve_engine.serve_engine(model, reqs,
+                                       serve_engine.serve_config())
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    s = serve_engine.summarize(result)
+    real_summary, real_tokens = real
+    same = sum(result["tokens"].get(r.rid) == real_tokens[r.rid]
+               for r in reqs)
+    say("engine", phase="pool", config=cfg.name,
+        pool_blocks=s["pool_blocks"], spare_pages=result["spare_pages"],
+        pool_gb=s["pool_bytes"] / 1e9,
+        mem_free_gb_after_pool=s["mem_free_after_pool"] / 1e9,
+        mem_total_gb=result["mem_total"] / 1e9)
+    say("engine", phase="run", config=cfg.name, kernel_launches=launches,
+        **{k: v for k, v in s.items()
+           if k not in ("pool_blocks", "pool_bytes", "mem_free_after_pool")})
+    say("engine", phase="beside_serve_real", config=cfg.name,
+        clock={"engine": "engine clock (measured launches)",
+               "serve_real": "host wall clock"},
+        engine={k: s[k] for k in ENGINE_KEYS},
+        serve_real={k: real_summary[k] for k in ENGINE_KEYS
+                    if k in real_summary},
+        tokens_per_s_ratio=s["tokens_per_s"] / real_summary["tokens_per_s"],
+        requests_tokens_equal_serve_real=same, requests=len(reqs))
+    launched = {k for k, n in launches.items() if n > 0}
+    require(launched == path_kernels(cfg),
+            f"engine {cfg.name}: launched {sorted(launched)}, its path runs "
+            f"{sorted(path_kernels(cfg))}: {launches}")
+    require(s["launches"].get("fused", 0) >= 1,
+            f"engine {cfg.name}: no fused step: {s['launches']}")
+    require(s["tokens_met"], f"engine {cfg.name}: a request's token count "
+            f"was not met")
+    require(all(0 <= x < cfg.vocab_size for t in result["tokens"].values()
+                for x in t), f"engine {cfg.name}: bad generated tokens")
+    require(s["pool_reclaimed"], f"engine {cfg.name}: KV pool not reclaimed")
+    require(s["state_rows_reclaimed"],
+            f"engine {cfg.name}: state rows not reclaimed")
+    require(s["preemptions"] == 0 and s["rejected"] == 0,
+            f"engine {cfg.name}: {s['preemptions']} preemptions, "
+            f"{s['rejected']} rejections")
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNEL_FAMILIES = {"flash_kernel": "flash_prefill",
                    "paged_kernel": "paged_attention",
                    "unified_kernel": "unified_pd",
@@ -1087,8 +1166,10 @@ def main():
             **kernel_scaling(gen, shapes))
 
         model = init_full(cfg)
-        launches = {"granite-8b": serve_full(model)}
+        launches = {}
+        launches["granite-8b"], summary, tokens = serve_full(model)
         say("profile", config=cfg.name, **profile_serving(model, cfg))
+        launches["granite-8b-engine"] = engine_full(model, (summary, tokens))
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -1103,8 +1184,9 @@ def main():
             gen, model, serving_requests(cfg)[0].prompt)
         say("kernels", phase="ssm_scan_serving_shape",
             tolerance_row=TOL_SCAN_ROW, **recs["ssm_scan"])
-        launches["jamba-period"] = serve_full(model)
+        launches["jamba-period"], summary, tokens = serve_full(model)
         say("profile", config=cfg.name, **profile_serving(model, cfg))
+        launches["jamba-period-engine"] = engine_full(model, (summary, tokens))
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -1126,7 +1208,8 @@ def main():
         return 1
 
     # each kernel's launches are those of the first serving run whose path
-    # runs it: granite-8b for attention, the Jamba period for ssm_scan
+    # runs it: granite-8b for attention, the Jamba period for ssm_scan;
+    # every serving run's own counts are under launches_by_path
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:113"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",

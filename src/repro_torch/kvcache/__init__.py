@@ -1,4 +1,4 @@
 from repro_torch.kvcache.manager import (  # noqa: F401
-    BlockAllocator, KVCacheManager, OutOfBlocks, kv_pages_for,
-    paged_cache_shape,
+    BlockAllocator, CheckpointStore, KVCacheManager, KVCheckpoint,
+    OutOfBlocks, kv_pages_for, paged_cache_shape,
 )

@@ -87,21 +87,27 @@ def test_serve_main_needs_gpu_unless_cpu_asked(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Every module of the port, and chip_smoke.py, import in a fresh
-    interpreter without loading jax or any module of ``repro``."""
+    """Every module of the port (the engine stack's packages named first),
+    and chip_smoke.py, import in a fresh interpreter without loading jax
+    or any module of ``repro``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
-        "for m in mods + ['chip_smoke']:\n"
+        "engine = ['repro_torch.core', 'repro_torch.perfmodel',\n"
+        "          'repro_torch.serving', 'repro_torch.launch.serve']\n"
+        "for m in engine + mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "    m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "    m.startswith('repro.'))\n"
-        "assert len(mods) >= 18, mods\n"
+        "assert len(mods) >= 38, mods\n"
         "assert {'repro_torch.kernels.ssm_scan', 'repro_torch.models.mamba',\n"
-        "        'repro_torch.configs.jamba_1_5_large_398b'} <= set(mods)\n"
+        "        'repro_torch.configs.jamba_1_5_large_398b',\n"
+        "        'repro_torch.core.executor', 'repro_torch.core.engines',\n"
+        "        'repro_torch.perfmodel.interference',\n"
+        "        'repro_torch.serving.metrics'} <= set(engine + mods)\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
