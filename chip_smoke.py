@@ -59,9 +59,28 @@ the result line:
                time per wake.  Exactly the path's kernels must launch, at
                least one fused step, every request's token count met, pool
                and state rows reclaimed, no preemption, no rejection; how
-               many requests' tokens equal serve_real's is reported.
+               many requests' tokens equal serve_real's is reported;
+  7. mixtral — Mixtral-8x7B at every published width, cut to 24 layers
+               (the config's one-card cut; random seeded weights, bf16,
+               70 GB): the attention kernels at its windowed shapes
+               (flash_prefill on a 6000-token prompt with the window 4096,
+               beside SDPA with a sliding-window mask; paged_attention over
+               ring tables, one sequence wrapped; unified_pd with both),
+               with two more planted faults (the window ignored; a decode's
+               K/V written at seq_lens, not seq_lens % W); one MoE layer
+               timed at the decode batch and at a prefill against its
+               bound; then phases 4 and 6 on the smoke's 8 requests plus a
+               6000-token prompt (the window binds) and a 4090-token one
+               (its ring wraps during decode), the kernel-vs-plain logits
+               also on the 6000-token prompt and a decode of it (the plain
+               path held to the kernel path's expert choices, of which it
+               would have chosen others for under 5 %; a planted window
+               fault in the plain path must move these logits past their
+               limit), and the decode step's device-busy share from a
+               profile.
 The last two lines are the kernels' JSON record and the result line.
 """
+import contextlib
 import gc
 import json
 import os
@@ -73,10 +92,12 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.config import get_config, replace  # noqa: E402
+from repro_torch.config import get_config, get_one_card_config, \
+    replace  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -85,7 +106,9 @@ from repro_torch.kernels import unified_pd as up  # noqa: E402
 from repro_torch.kvcache import kv_pages_for  # noqa: E402
 from repro_torch.launch import serve as serve_engine  # noqa: E402
 from repro_torch.launch import serve_real  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
 
@@ -100,6 +123,12 @@ TOL_F32, TOL_BF16, TOL_FUSED, TOL_LOGITS = 3e-5, 3e-2, 1e-6, 3e-2
 # the Jamba period's kernel path against its plain path in float32: the
 # two differ only in summation order, far below one bf16 ulp (3.9e-3)
 TOL_LOGITS_F32 = 1e-3
+# Mixtral's kernel-vs-plain logits hold the plain path to the kernel
+# path's expert choices (``routing``).  The choices the plain path would
+# have made itself may differ from them only at near-ties, in at most this
+# share of the routed (token, choice) pairs; a fault in the attention
+# kernels moves the router's inputs, and the choices with them, by more.
+TOL_FLIP_SHARE = 0.05
 # bf16, per output row: max|kernel - plain| <= TOL_ROW * max|plain row|.
 # The plain version computes in float32 from the bf16 inputs and rounds
 # once.  The tensor-core prefill tile also rounds P to bf16 before P.V (the
@@ -218,11 +247,13 @@ def bound_ms(nbytes, flops, dtype):
                                        else "operations")
 
 
-def prefill_work(q, k):
+def prefill_work(q, k, window=None):
     """Bytes (q,k,v read once, o written once) and causal multiply-add
-    operations (2 per MAC) of q (B,Hq,S,D) against k (B,Hkv,S,D)."""
+    operations (2 per MAC) of q (B,Hq,S,D) against k (B,Hkv,S,D): query i
+    against its min(i + 1, window) keys."""
     B, Hq, S, D = q.shape
-    pairs = B * Hq * S * (S + 1) // 2
+    W = window or S
+    pairs = B * Hq * (min(S, W) * (min(S, W) + 1) // 2 + max(S - W, 0) * W)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     return nbytes, 4 * pairs * D
 
@@ -385,14 +416,15 @@ def main_path_shapes(cfg, reqs):
             "page": SERVE["page"]}
 
 
-def prefill_faults(q, k, v):
+def prefill_faults(q, k, v, window=None):
     """The plain prefill under planted faults: the last key never read;
     key BK (the first of the second k-block) read as key BK-1."""
     k2, v2 = k.clone(), v.clone()
     k2[:, :, 64], v2[:, :, 64] = k[:, :, 63], v[:, :, 63]
-    return {"last_key_dropped": ref.causal_attention(q, k[:, :, :-1],
-                                                     v[:, :, :-1]),
-            "key_64_read_as_63": ref.causal_attention(q, k2, v2)}
+    return {"last_key_dropped": ref.causal_attention(
+                q, k[:, :, :-1], v[:, :, :-1], window=window),
+            "key_64_read_as_63": ref.causal_attention(q, k2, v2,
+                                                      window=window)}
 
 
 def decode_faults(q, k_pages, v_pages, tabs, lens):
@@ -758,37 +790,84 @@ def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def first_steps_kernel_vs_plain(model, reqs, page):
-    """The run's first prefill (request 0) and first concurrent step
-    (prefill request 1 + decode request 0), through the kernel path and
-    the plain path on the same inputs and cache contents."""
+@contextlib.contextmanager
+def routing(mode, log):
+    """Hold the plain path to the kernel path's expert choices.  With
+    ``mode`` "record", each MoE layer's choices (``moe.choose_experts``)
+    are appended to ``log["choices"]``; with "replay", each call takes the
+    next recorded choices, in the same order, with its own gates at them,
+    and counts in ``log["flips"]`` the (token, choice) pairs it would have
+    chosen otherwise.  A router's near-tie flips under any rounding, and
+    one flipped choice moves a token's output by its gate times an
+    expert's, far past the logits limit whichever side is right; with the
+    choices held, the logits differ by the attention kernels alone.  A
+    model without MoE layers makes no call."""
+    choose = moe_mod.choose_experts
+
+    def record(probs, k):
+        gates, experts = choose(probs, k)
+        log["choices"].append(experts)
+        return gates, experts
+
+    def replay(probs, k):
+        experts = log["choices"].pop(0)
+        log["flips"] += int((choose(probs, k)[1] != experts).sum())
+        log["pairs"] += experts.numel()
+        return probs.gather(1, experts), experts
+
+    moe_mod.choose_experts = record if mode == "record" else replay
+    try:
+        yield
+    finally:
+        moe_mod.choose_experts = choose
+
+
+def first_steps_kernel_vs_plain(model, reqs, page, pair=(0, 1)):
+    """The run's first prefill (request ``pair[0]``) and first concurrent
+    step (prefill request ``pair[1]`` + decode request ``pair[0]``),
+    through the kernel path and the plain path on the same inputs and
+    cache contents (a ring of the first W / page blocks under a window),
+    the plain path on the kernel path's expert choices (``routing``).
+    Both paths prefill as the serving run does (``return_aux``: an MoE
+    layer's inference capacity policy).  Returns the errors and the
+    routing flips."""
     cfg = model.cfg
-    r0, r1 = reqs[0], reqs[1]
+    window = cfg.sliding_window
+    log = {"choices": [], "flips": 0, "pairs": 0}
+    r0, r1 = reqs[pair[0]], reqs[pair[1]]
     n0 = len(r0.prompt)
-    blocks = kv_pages_for(n0 + 1, page)
+    blocks = len(attn_mod.ring_table(range(kv_pages_for(n0 + 1, page)),
+                                     window, page))
     cache = tf.init_cache(cfg, blocks, page, 1, device=DEVICE)
     tab = torch.arange(blocks, device=DEVICE, dtype=torch.int32)[None]
     slot = torch.zeros(1, device=DEVICE, dtype=torch.int64)
     p0 = torch.tensor(r0.prompt[None], device=DEVICE)
     pos0 = torch.arange(n0, device=DEVICE)[None]
-    lk, aux = tf.forward(model, p0, pos0, impl="kernel", return_aux=True,
-                         last_only=True)
-    lr = tf.forward(model, p0, pos0, impl="ref", last_only=True)
-    tf.write_prefill_to_cache(cache, aux, tab, slot)
+    with routing("record", log):
+        lk, aux = tf.forward(model, p0, pos0, impl="kernel", return_aux=True,
+                             last_only=True)
+    with routing("replay", log):
+        lr = tf.forward(model, p0, pos0, impl="ref", return_aux=True,
+                        last_only=True)[0]
+    tf.write_prefill_to_cache(cache, aux, tab, slot, window=window)
+    del aux
     tok = tf.greedy_sample(lk, cfg.vocab_size)
     lens = torch.tensor([n0], device=DEVICE, dtype=torch.int32)
     p1 = torch.tensor(r1.prompt[None], device=DEVICE)
     pos1 = torch.arange(len(r1.prompt), device=DEVICE)[None]
     outs = {}
-    for impl in ("kernel", "ref"):
+    for impl, mode in (("kernel", "record"), ("ref", "replay")):
         c = [{k: t.clone() for k, t in layer.items()} for layer in cache]
-        p_logits, _, d_logits, _ = tf.fused_pd_forward(
-            model, p1, pos1, tok, lens[:, None], c, tab, lens, slot,
-            f_decode=SERVE["f_decode"], impl=impl)
+        with routing(mode, log):
+            p_logits, _, d_logits, _ = tf.fused_pd_forward(
+                model, p1, pos1, tok, lens[:, None], c, tab, lens, slot,
+                f_decode=SERVE["f_decode"], impl=impl)
         outs[impl] = (p_logits, d_logits)
+        del c
     return {"first_prefill": rel_err(lk, lr),
             "fused_prefill": rel_err(outs["kernel"][0], outs["ref"][0]),
-            "fused_decode": rel_err(outs["kernel"][1], outs["ref"][1])}
+            "fused_decode": rel_err(outs["kernel"][1], outs["ref"][1])}, \
+        {"routing_flips": log["flips"], "routed_pairs": log["pairs"]}
 
 
 def logits_fault(model, prompt):
@@ -817,6 +896,41 @@ def logits_fault(model, prompt):
     require(len(calls) == sum(b.kind == "mamba" for b in model.layers),
             "the planted fault did not reach the plain scan")
     return rel_err(faulted, sound)
+
+
+def window_logits_fault(model, prompt):
+    """The held-routing check of ``first_steps_kernel_vs_plain`` on
+    ``prompt``'s prefill, with a planted fault in the plain path: its
+    causal attention ignores the window in every layer, as a prefill
+    kernel whose window culling was lost would.  Returns how far the
+    faulted plain logits lie from the kernel path's, and the routing
+    flips of the faulted run; a limit on kernel-vs-plain logits that this
+    stays within could not see such a kernel."""
+    cfg = model.cfg
+    log = {"choices": [], "flips": 0, "pairs": 0}
+    pos = torch.arange(len(prompt), device=DEVICE)[None]
+    toks = torch.tensor(prompt[None], device=DEVICE)
+    with routing("record", log):
+        lk = tf.forward(model, toks, pos, impl="kernel", return_aux=True,
+                        last_only=True)[0]
+    attn, windows = ref.causal_attention, []
+
+    def window_ignored(q, k, v, *, window=None):
+        windows.append(window)
+        return attn(q, k, v)
+
+    ref.causal_attention = window_ignored
+    try:
+        with routing("replay", log):
+            faulted = tf.forward(model, toks, pos, impl="ref",
+                                 return_aux=True, last_only=True)[0]
+    finally:
+        ref.causal_attention = attn
+    require(len(windows) == cfg.num_layers and
+            set(windows) == {cfg.sliding_window},
+            f"the planted fault reached windows {windows}")
+    return rel_err(lk, faulted), {"routing_flips": log["flips"],
+                                  "routed_pairs": log["pairs"]}
 
 
 def path_kernels(cfg):
@@ -851,18 +965,21 @@ def init_full(cfg):
     return model
 
 
-def serve_full(model):
-    """The serving run: 8 requests after a warm-up, with the launch counts
-    of the run alone; then kernel path against plain path.  Returns the
-    launch counts, the run's summary and each request's tokens."""
+def serve_full(model, reqs=None, pairs=((0, 1),)):
+    """The serving run: ``reqs`` (default: ``serving_requests``) after a
+    warm-up, with the launch counts of the run alone; then kernel path
+    against plain path on the first steps of each (prefill, then fused)
+    request pair of ``pairs``.  Returns the launch counts, the run's
+    summary and each request's tokens."""
     cfg = model.cfg
     # warm-up: two short requests exercise prefill, fused and decode steps
     warm = serve_real.make_requests(cfg, 2, SERVE["seed"] + 1, (32, 64),
                                     (3, 3))
     serve_real.serve(model, warm, slots=SERVE["slots"], page=SERVE["page"],
                      f_decode=SERVE["f_decode"])
-    reqs = serving_requests(cfg)
+    reqs = reqs or serving_requests(cfg)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     result = serve_real.serve(model, reqs, slots=SERVE["slots"],
                               page=SERVE["page"], f_decode=SERVE["f_decode"])
@@ -871,9 +988,10 @@ def serve_full(model):
     summary = serve_real.summarize(result)
     say("serve", phase="run", config=cfg.name, launches=launches, **summary,
         prompt_lens=[len(r.prompt) for r in reqs],
-        max_new=[r.max_new for r in reqs])
-    require(summary["requests"] == SERVE["requests"], "not every request "
-            "was served")
+        max_new=[r.max_new for r in reqs],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require(summary["requests"] == len(reqs), "not every request was "
+            "served")
     require(all(len(r.tokens) == r.max_new and
                 all(0 <= x < cfg.vocab_size for x in r.tokens)
                 for r in result["requests"]), "bad generated tokens")
@@ -883,22 +1001,32 @@ def serve_full(model):
     require(launched == path_kernels(cfg),
             f"{cfg.name}: launched {sorted(launched)}, its path runs "
             f"{sorted(path_kernels(cfg))}: {launches}")
-    errs = first_steps_kernel_vs_plain(model, reqs, SERVE["page"])
-    say("serve", phase="kernel_vs_plain_logits", config=cfg.name,
-        metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS, **errs)
-    require(all(e < TOL_LOGITS for e in errs.values()),
-            f"logits differ between kernel and plain paths: {errs}")
-    return launches, summary, {r.rid: r.tokens for r in result["requests"]}
+    for pair in pairs:
+        errs, flips = first_steps_kernel_vs_plain(model, reqs, SERVE["page"],
+                                                  pair)
+        share = flips["routing_flips"] / max(flips["routed_pairs"], 1)
+        say("serve", phase="kernel_vs_plain_logits", config=cfg.name,
+            requests=list(pair),
+            prompt_lens=[len(reqs[i].prompt) for i in pair],
+            metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS,
+            plain_path_on_kernel_path_expert_choices=bool(flips[
+                "routed_pairs"]), flip_share=share,
+            flip_share_limit=TOL_FLIP_SHARE, **flips, **errs)
+        require(all(e < TOL_LOGITS for e in errs.values()),
+                f"logits differ between kernel and plain paths: {errs}")
+        require(share < TOL_FLIP_SHARE, f"the plain path would have chosen "
+                f"other experts for {share:.2%} of the routed pairs")
+    return launches, summary, {r.rid: r.tokens for r in reqs}
 
 
 def jamba_period():
-    """One full-width Jamba-1.5-Large period without experts.  Two cuts of
-    the published model: depth 72 -> 8 (one whole period: 7 Mamba layers
-    and the attention layer at position 4), and the MoE FFN of odd layers
-    -> Jamba's dense FFN (d_ff 24576) on every layer; one full-width MoE
-    layer would be 19.3 GB of bf16 experts.  9.0 B parameters, 18 GB."""
-    return replace(get_config("jamba-1.5-large-398b"), num_layers=8,
-                   ffn_pattern=("dense",))
+    """One full-width Jamba-1.5-Large period without experts, the
+    config's one-card cut (``configs/jamba_1_5_large_398b.py``): depth
+    72 -> 8 (one whole period: 7 Mamba layers and the attention layer at
+    position 4), and the MoE FFN of odd layers -> Jamba's dense FFN (d_ff
+    24576) on every layer; one period with its 4 MoE layers would be 90.5
+    GB of bf16.  9.0 B parameters, 18 GB."""
+    return get_one_card_config("jamba-1.5-large-398b")
 
 
 def first_scan_inputs(model, prompt):
@@ -1009,21 +1137,23 @@ ENGINE_KEYS = ("tokens", "span_s", "wall_s", "tokens_per_s", "ttft_mean_s",
                "ttft_p95_s", "itl_mean_s", "itl_p95_s")
 
 
-def engine_full(model, real):
-    """The serving run's requests through ``RapidEngine`` +
-    ``KernelExecutor`` with the pool the scheduler sizes from ``H100``;
-    ``real`` is serve_real's (summary, tokens by rid) of the same
-    requests.  Returns the launch counts of the run."""
+def engine_full(model, real, reqs=None):
+    """The serving run's requests (default: ``serving_requests``) through
+    ``RapidEngine`` + ``KernelExecutor`` with the pool the scheduler sizes
+    from ``H100``; ``real`` is serve_real's (summary, tokens by rid) of
+    the same requests.  Returns the launch counts of the run."""
     cfg = model.cfg
-    reqs = serving_requests(cfg)
+    reqs = reqs or serving_requests(cfg)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     result = serve_engine.serve_engine(model, reqs,
                                        serve_engine.serve_config())
     torch.cuda.synchronize()
     launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
     s = serve_engine.summarize(result)
     real_summary, real_tokens = real
     same = sum(result["tokens"].get(r.rid) == real_tokens[r.rid]
@@ -1032,7 +1162,7 @@ def engine_full(model, real):
         pool_blocks=s["pool_blocks"], spare_pages=result["spare_pages"],
         pool_gb=s["pool_bytes"] / 1e9,
         mem_free_gb_after_pool=s["mem_free_after_pool"] / 1e9,
-        mem_total_gb=result["mem_total"] / 1e9)
+        mem_total_gb=result["mem_total"] / 1e9, peak_gb=peak / 1e9)
     say("engine", phase="run", config=cfg.name, kernel_launches=launches,
         **{k: v for k, v in s.items()
            if k not in ("pool_blocks", "pool_bytes", "mem_free_after_pool")})
@@ -1071,6 +1201,27 @@ KERNEL_FAMILIES = {"flash_kernel": "flash_prefill",
                    "unified_kernel": "unified_pd",
                    "ssm_kernel": "ssm_scan"}
 MATMUL_MARKS = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
+# the host calls that launch a kernel (cuBLAS's GEMMs use the driver's)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def device_time(prof):
+    """Device seconds of a profile by kernel family, and its 8 most
+    expensive device operations by name."""
+    by_family, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = next((v for k, v in KERNEL_FAMILIES.items() if k in e.name),
+                   None)
+        if fam is None:
+            fam = "matmul" if any(m in e.name.lower()
+                                  for m in MATMUL_MARKS) else "other"
+        s = e.time_range.elapsed_us() / 1e6
+        by_family[fam] = by_family.get(fam, 0.0) + s
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + s
+    return by_family, sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
 
 
 def profile_serving(model, cfg):
@@ -1097,20 +1248,8 @@ def profile_serving(model, cfg):
     host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     host_top = [(e.key, e.count, e.self_cpu_time_total / 1e6)
                 for e in host_ops[:10]]
-    by_family, by_name = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        fam = next((v for k, v in KERNEL_FAMILIES.items() if k in e.name),
-                   None)
-        if fam is None:
-            fam = "matmul" if any(m in e.name.lower()
-                                  for m in MATMUL_MARKS) else "other"
-        s = e.time_range.elapsed_us() / 1e6
-        by_family[fam] = by_family.get(fam, 0.0) + s
-        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + s
+    by_family, top = device_time(prof)
     busy = sum(by_family.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     sync_msgs = [str(w.message) for w in syncs
                  if "synchroniz" in str(w.message)]
     return {"requests": len(reqs), "steps": result["steps"], "wall_s": wall,
@@ -1122,6 +1261,281 @@ def profile_serving(model, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: Mixtral-8x7B — the MoE FFN and the sliding-window ring cache
+# ---------------------------------------------------------------------------
+
+# (prompt tokens, new tokens) of the two fixed requests after the smoke's
+# 8: a prefill past the window (the window binds, and only the last W
+# tokens are written), and a prompt whose ring wraps during decode at
+# position 4096, a page boundary
+MIXTRAL_FIXED = ((6000, 32), (4090, 32))
+
+
+def mixtral():
+    """Mixtral-8x7B at every published width, cut to the 24 layers one
+    card holds (the config's one-card cut, ``configs/mixtral_8x7b.py``)."""
+    return get_one_card_config("mixtral-8x7b")
+
+
+def mixtral_requests(cfg):
+    """The smoke's 8 seeded requests, then MIXTRAL_FIXED's two (rids 8
+    and 9, prompts from a seeded generator)."""
+    reqs = serving_requests(cfg)
+    rng = np.random.default_rng(SERVE["seed"] + 2)
+    for n, new in MIXTRAL_FIXED:
+        reqs.append(serve_real.Request(
+            len(reqs), rng.integers(0, cfg.vocab_size, size=n)
+            .astype(np.int32), new))
+    return reqs
+
+
+def ring_decode_inputs(gen, ns, Hq, Hkv, D, page, W, dtype):
+    """Decode inputs over ring tables: sequence b has ``ns[b]`` tokens
+    cached and reads min(ns[b] + 1, W) keys through W / page pages of a
+    shuffled pool.  Also the same inputs under the planted fault that the
+    ring repairs: each wrapped sequence's newest K/V, at ring slot n % W,
+    replaced by other values, which is what a write at position n (not
+    n % W) leaves there."""
+    B, mp = len(ns), W // page
+    N = B * mp + 4
+    q = randn(gen, B, Hq, D, dtype=dtype)
+    kp = randn(gen, N, page, Hkv, D, dtype=dtype)
+    vp = randn(gen, N, page, Hkv, D, dtype=dtype)
+    tabs = tables(gen, B, N, mp)
+    lens = torch.tensor([min(n + 1, W) for n in ns], dtype=torch.int32,
+                        device=DEVICE)
+    kf, vf = kp.clone(), vp.clone()
+    for b, n in enumerate(ns):
+        if n >= W:
+            blk = int(tabs[b, n % W // page])
+            kf[blk, n % page] = randn(gen, Hkv, D, dtype=dtype)
+            vf[blk, n % page] = randn(gen, Hkv, D, dtype=dtype)
+    return (q, kp, vp, tabs, lens), (q, kf, vf, tabs, lens)
+
+
+def check_window_shapes(gen, cfg, reqs):
+    """bf16 at Mixtral's windowed shapes, before its model is loaded:
+    flash_prefill on the 6000-token prompt with the window (beside SDPA
+    with a boolean sliding-window mask); paged_attention over ring tables
+    of W / page pages, its first sequence wrapped (the 4090-token prompt
+    16 tokens into its decode); unified_pd with that prefill and the first
+    3 of those decodes.  Each within TOL_BF16 and TOL_ROW of its plain
+    version, and planted faults beyond TOL_ROW: the window ignored
+    (prefill), the wrapped sequence's K/V written at seq_lens rather than
+    seq_lens % W (decode), and phase 3's faults.  unified_pd must equal
+    the standalone kernels bit for bit at every f_decode.  Returns
+    per-kernel records."""
+    W, page, f_dec = cfg.sliding_window, SERVE["page"], SERVE["f_decode"]
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+    S = len(reqs[8].prompt)
+    ns = [len(reqs[9].prompt) + 16] + [len(r.prompt) + 8 for r in reqs[1:4]]
+    require(ns[0] >= W > max(ns[1:]), f"decode batch {ns}: one wrapped")
+    recs = {}
+
+    q, k, v = prefill_inputs(gen, 1, Hq, Hkv, S, D, bf16)
+    pos = torch.arange(S, device=DEVICE)
+    mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - W)
+    want_p = ref.causal_attention(q, k, v, window=W)
+    p_faults = {"window_ignored": ref.causal_attention(q, k, v),
+                **prefill_faults(q, k, v, window=W)}
+    recs["flash_prefill"] = kernel_record(
+        within_bf16("flash_prefill windowed",
+                    fp.flash_prefill(q, k, v, window=W), want_p, p_faults),
+        lambda: fp.flash_prefill(q, k, v, window=W),
+        lambda: ref.causal_attention(q, k, v, window=W),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               enable_gqa=True),
+        prefill_work(q, k, W),
+        f"q{list(q.shape)} k{list(k.shape)} window {W} bf16")
+    recs["flash_prefill"]["library"] = "SDPA, boolean sliding-window " \
+        "mask, enable_gqa"
+    del mask
+
+    dec, dec_fault = ring_decode_inputs(gen, ns, Hq, Hkv, D, page, W, bf16)
+    want_d = ref.paged_attention(*dec)
+    recs["paged_attention"] = kernel_record(
+        within_bf16("paged_attention ring", pa.paged_attention(*dec), want_d,
+                    {**decode_faults(*dec), "kv_written_at_seq_lens":
+                     ref.paged_attention(*dec_fault)}),
+        lambda: pa.paged_attention(*dec), lambda: ref.paged_attention(*dec),
+        None, decode_work(dec[0], dec[1], dec[4]),
+        f"q{list(dec[0].shape)} cached {ns} lens {dec[4].tolist()} ring of "
+        f"{W // page} pages of {page} bf16")
+    recs["paged_attention"]["splits"] = pa.split_count(W // page, page)
+
+    udec, udec_fault = ring_decode_inputs(gen, ns[:3], Hq, Hkv, D, page, W,
+                                          bf16)
+    args = (q, k, v) + udec
+    got = up.unified_pd(*args, f_decode=f_dec, window=W)
+    want = ref.unified_pd(*args, window=W)
+    faults = {**{f"prefill_{n}": (o, want[1]) for n, o in p_faults.items()},
+              **{f"decode_{n}": (want[0], o)
+                 for n, o in decode_faults(*udec).items()},
+              "decode_kv_written_at_seq_lens": (
+                  want[0], ref.paged_attention(*udec_fault))}
+    check = within_bf16("unified_pd windowed", got, want, faults)
+    pb, pf = prefill_work(q, k, W)
+    db, df = decode_work(udec[0], udec[1], udec[4])
+    recs["unified_pd"] = kernel_record(
+        check, lambda: up.unified_pd(*args, f_decode=f_dec, window=W),
+        lambda: ref.unified_pd(*args, window=W), None, (pb + db, pf + df),
+        f"prefill q{list(q.shape)} window {W} + decode q"
+        f"{list(udec[0].shape)} cached {ns[:3]} ring bf16")
+    recs["unified_pd"]["splits"] = pa.split_count(W // page, page)
+    alone = (fp.flash_prefill(q, k, v, window=W), pa.paged_attention(*udec))
+    for f in F_DECODES:
+        for g, w in zip(up.unified_pd(*args, f_decode=f, window=W), alone):
+            require(torch.equal(g, w), f"windowed unified_pd bf16 != "
+                    f"standalone at f_decode={f}: {excess(g, w, 0)[1]}")
+    recs["unified_pd"]["fused_vs_standalone_bf16_bit_equal"] = True
+    return recs
+
+
+def device_ops(fn):
+    """The device operations (kernels, copies, fills) one call of fn runs,
+    counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
+def moe_layer_record(gen, model, reqs):
+    """Layer 0's MoE FFN at the decode batch (4 tokens, dropless) and at
+    the first prompt's prefill (the inference capacity policy), on
+    unit-variance bf16 inputs (what rmsnorm hands it): its time after an
+    L2 flush, its bound (expert bytes touched at 3.35 TB/s; the kept
+    pairs' operations at 989 TFLOP/s), the capacity buffers' padding
+    factor (rows computed over pairs kept) and the device operations of
+    one call."""
+    cfg = model.cfg
+    m, ffn = cfg.moe, model.layers[0].ffn
+    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    out = {}
+    for name, T, policy in (("decode", SERVE["slots"], {"dropless": True}),
+                            ("prefill", len(reqs[0].prompt),
+                             {"inference": True})):
+        x = randn(gen, 1, T, d, dtype=torch.bfloat16)
+        _, rows, (g, N, C) = moe_mod.route(ffn, cfg, x, **policy)
+        kept = rows < E * N * C
+        pairs = int(kept.sum())
+        touched = int(torch.unique(rows[kept] // (N * C)).numel())
+        nbytes = 2 * (d * E + touched * 3 * d * f + 2 * T * d)
+        flops = 2 * T * d * E + pairs * 6 * d * f
+        bound, by = bound_ms(nbytes, flops, torch.bfloat16)
+        ms = time_ms(lambda: moe_mod.moe_ffn(ffn, cfg, x, **policy))
+        out[name] = {
+            "tokens": T, "policy": sorted(policy), "group": g, "groups": N,
+            "capacity": C, "pairs": T * m.top_k, "pairs_kept": pairs,
+            "rows_computed": E * N * C, "padding_factor": E * N * C / pairs,
+            "experts_touched": touched, "ms": ms, "bound_ms": bound,
+            "bound_by": by, "bound_share": bound / ms,
+            "device_ops": device_ops(
+                lambda: moe_mod.moe_ffn(ffn, cfg, x, **policy))}
+    return out
+
+
+def profile_decode(model, reqs, steps=5):
+    """Decode steps alone at the serving decode batch (4 sequences with
+    the first 4 prompts' lengths + 8 cached, zeroed K/V, ring tables): per
+    step the mean host wall time to the sampled tokens and the mean
+    CUDA-event time; then ``steps`` steps under torch.profiler: the
+    device-busy share (device time over wall time) and device time by
+    family.  Whether the step follows the weights or the host."""
+    cfg, page = model.cfg, SERVE["page"]
+    ns = [len(r.prompt) + 8 for r in reqs[:SERVE["slots"]]]
+    mp = len(attn_mod.ring_table(range(kv_pages_for(max(ns) + 1, page)),
+                                 cfg.sliding_window, page))
+    B = len(ns)
+    cache = tf.init_cache(cfg, B * mp, page, B, device=DEVICE)
+    tabs = torch.arange(B * mp, dtype=torch.int32, device=DEVICE).view(B, mp)
+    lens = torch.tensor(ns, dtype=torch.int32, device=DEVICE)
+    toks = torch.tensor([[int(r.prompt[-1])] for r in reqs[:B]],
+                        dtype=torch.int32, device=DEVICE)
+    slots = torch.arange(B, device=DEVICE)
+
+    def step():
+        logits, _ = tf.decode_forward(model, toks, lens[:, None], cache, tabs,
+                                      lens, slots)
+        return tf.greedy_sample(logits, cfg.vocab_size)
+
+    for _ in range(2):
+        step().tolist()
+    wall = dev = 0.0
+    for _ in range(steps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        out = step()
+        e1.record()
+        out.tolist()
+        wall += time.perf_counter() - t
+        dev += e0.elapsed_time(e1)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            step().tolist()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    by_family, top = device_time(prof)
+    busy = sum(by_family.values())
+    return {"batch": B, "cached": ns, "table_pages": mp, "steps": steps,
+            "step_wall_ms": 1e3 * wall / steps,
+            "step_event_ms": dev / steps, "profiled_wall_s": prof_wall,
+            "device_busy_s": busy, "device_ms_per_step": 1e3 * busy / steps,
+            "busy_share": busy / prof_wall if busy else "not measured",
+            "device_s_by_family": by_family, "top_kernels_s": top,
+            "launches_per_step": sum(
+                e.name in LAUNCH_CALLS for e in prof.events()) / steps}
+
+
+# ---------------------------------------------------------------------------
+
+
+def mixtral_phase(gen):
+    """Phase 7: Mixtral's windowed kernel checks, then its model (70 GB)
+    through both entry points.  Returns (kernel records at its shapes,
+    launch counts by path)."""
+    cfg = mixtral()
+    reqs = mixtral_requests(cfg)
+    recs = check_window_shapes(gen, cfg, reqs)
+    say("kernels", phase="window_shapes", config=cfg.name,
+        window=cfg.sliding_window, tolerance_bf16=TOL_BF16,
+        tolerance_bf16_row=TOL_ROW, **recs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = init_full(cfg)
+    say("moe", config=cfg.name, layer=0, **moe_layer_record(gen, model, reqs))
+    launches = {}
+    launches[cfg.name], summary, tokens = serve_full(
+        model, reqs, pairs=((0, 1), (8, 9)))
+    fault, flips = window_logits_fault(model, reqs[8].prompt)
+    say("serve", phase="kernel_vs_plain_logits_fault", config=cfg.name,
+        request=8, prompt_len=len(reqs[8].prompt),
+        metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS,
+        fault_window_ignored=fault, **flips)
+    require(fault > TOL_LOGITS, f"a planted window fault moves the held-"
+            f"routing logits by {fault}, within {TOL_LOGITS}")
+    say("profile", config=cfg.name, **profile_serving(model, cfg))
+    say("profile", phase="decode_steps", config=cfg.name,
+        **profile_decode(model, reqs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches[f"{cfg.name}-engine"] = engine_full(model, (summary, tokens),
+                                                 reqs)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs, launches
 
 
 def main():
@@ -1193,8 +1607,8 @@ def main():
         # the same comparison with float32 weights (36 GB), where only the
         # order of float32 sums separates the two paths
         model = init_full(replace(cfg, dtype="float32"))
-        errs = first_steps_kernel_vs_plain(model, serving_requests(cfg),
-                                           SERVE["page"])
+        errs, _ = first_steps_kernel_vs_plain(model, serving_requests(cfg),
+                                              SERVE["page"])
         fault = logits_fault(model, serving_requests(cfg)[0].prompt)
         say("serve", phase="kernel_vs_plain_logits_f32", config=cfg.name,
             metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS_F32,
@@ -1203,13 +1617,20 @@ def main():
                 f"float32 logits differ between kernel and plain: {errs}")
         require(fault > TOL_LOGITS_F32, f"a planted scan fault moves the "
                 f"float32 logits by {fault}, within {TOL_LOGITS_F32}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        mixtral_attn, mixtral_launches = mixtral_phase(gen)
+        launches.update(mixtral_launches)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
     # each kernel's launches are those of the first serving run whose path
     # runs it: granite-8b for attention, the Jamba period for ssm_scan;
-    # every serving run's own counts are under launches_by_path
+    # every serving run's own counts (Mixtral's too) are under
+    # launches_by_path
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:113"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -1240,13 +1661,15 @@ def main():
                   "from_h0", "persistent"):
             if k in r:
                 kernels[-1][k] = r[k]
-        if name in jamba_attn:
-            j = jamba_attn[name]
-            kernels[-1]["at_jamba_shapes"] = {
-                k: j[k] for k in ("max_abs_err", "max_row_rel_err", "ms",
-                                  "plain_ms", "bound_ms", "shape", "splits",
-                                  "persistent")
-                if k in j}
+        for key, at in (("at_jamba_shapes", jamba_attn),
+                        ("at_mixtral_shapes", mixtral_attn)):
+            if name in at:
+                kernels[-1][key] = {
+                    k: at[name][k] for k in (
+                        "max_abs_err", "max_row_rel_err", "fault_row_rel_err",
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library", "shape", "splits",
+                        "persistent") if k in at[name]}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

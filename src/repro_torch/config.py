@@ -291,11 +291,17 @@ class ServeConfig:
 
 ARCH_REGISTRY: dict = {}
 _REDUCED_REGISTRY: dict = {}
+_ONE_CARD_REGISTRY: dict = {}
 
 
-def register(config: ModelConfig, reduced: Callable[[], ModelConfig]):
+def register(config: ModelConfig, reduced: Callable[[], ModelConfig],
+             one_card: Optional[Callable[[], ModelConfig]] = None):
+    """``one_card``: the cut of ``config`` that one 80 GB H100 serves, for
+    a model whose published config does not fit one."""
     ARCH_REGISTRY[config.name] = config
     _REDUCED_REGISTRY[config.name] = reduced
+    if one_card is not None:
+        _ONE_CARD_REGISTRY[config.name] = one_card
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -310,6 +316,15 @@ def get_reduced_config(arch: str) -> ModelConfig:
     if arch not in _REDUCED_REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_REGISTRY)}")
     return _REDUCED_REGISTRY[arch]()
+
+
+def get_one_card_config(arch: str) -> ModelConfig:
+    """The published config, or its registered one-card cut where one
+    card cannot hold it (every width kept; the cut is the config's)."""
+    _ensure_loaded()
+    if arch in _ONE_CARD_REGISTRY:
+        return _ONE_CARD_REGISTRY[arch]()
+    return get_config(arch)
 
 
 def list_archs():

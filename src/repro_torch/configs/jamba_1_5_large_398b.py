@@ -6,10 +6,15 @@ matching Jamba's attn_layer_offset); MoE replaces the dense FFN on every
 other layer (e=2).  Jamba uses no explicit positional encoding (the Mamba
 layers carry position); rope_type="none".
 
-The MoE FFN is not ported yet, so building a model from either config
-as it stands raises ``NotImplementedError``.
+``one_card``: one full-width period without experts, what one 80 GB H100
+serves.  Two cuts of the published model: depth 72 -> 8 (one whole
+period: 7 Mamba layers and the attention layer at position 4), and the
+MoE FFN of odd layers -> Jamba's dense FFN (d_ff 24576) on every layer:
+one period with its 4 MoE layers is 90.5 GB of bf16 (each MoE layer
+19.3 GB of experts).  9.0 B parameters, 18 GB.
 """
-from repro_torch.config import MambaConfig, MoEConfig, ModelConfig, register
+from repro_torch.config import (MambaConfig, MoEConfig, ModelConfig, register,
+                                replace)
 
 CONFIG = ModelConfig(
     name="jamba-1.5-large-398b",
@@ -53,4 +58,8 @@ def reduced() -> ModelConfig:
     )
 
 
-register(CONFIG, reduced)
+def one_card() -> ModelConfig:
+    return replace(CONFIG, num_layers=8, ffn_pattern=("dense",))
+
+
+register(CONFIG, reduced, one_card)

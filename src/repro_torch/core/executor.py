@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.events import FinishedEvent
 from repro_torch.core.scheduler import SchedView, StepPlan
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import ring_slots, ring_table
 from repro_torch.perfmodel import batch as B
 from repro_torch.perfmodel import costs as C
 from repro_torch.perfmodel import interference as I
@@ -269,7 +270,12 @@ class KernelExecutor(Executor):
     block not yet handed out.  The pool holds one spare page per decode
     slot after the engine's blocks; such a request's block table ends in
     its slot's spare for that step, and the spare is copied into the
-    block the engine appends before the next decode step.
+    block the engine appends before the next decode step.  Under a
+    sliding window W the engine still hands out blocks for the whole
+    context, and a request's block table is the ring of its first W /
+    page blocks (``ring_table``): a spare page serves only positions
+    below W, and is copied into the ring's block of its position; from W
+    on the ring slot lies in a block the request already holds.
 
     Mamba state rows.  A request holds a row from its prefill until the
     engine's ``FinishedEvent`` (also while it waits to join the decode
@@ -441,13 +447,16 @@ class KernelExecutor(Executor):
         row = self._take_row(r.rid)
         toks = torch.from_numpy(prompt[None]).to(self.device)
         pos = torch.arange(len(prompt), device=self.device)[None]
-        return (toks, pos, self._ints([kv.blocks_of(r.rid)]),
+        table = ring_table(kv.blocks_of(r.rid), self.cfg.sliding_window,
+                           self.serve.page_size)
+        return (toks, pos, self._ints([table]),
                 self._ints([row], torch.int64))
 
     def _flush_spares(self, kv) -> None:
         """Copy each spare page into the block the engine has since
-        appended for the position it holds."""
-        page = self.serve.page_size
+        appended for the position it holds: its ring's block under a
+        window (the same block, since a spare holds a position below W)."""
+        page, window = self.serve.page_size, self.cfg.sliding_window
         src, dst = [], []
         for rid, (spare, pos) in list(self._spare.items()):
             del self._spare[rid]
@@ -460,7 +469,7 @@ class KernelExecutor(Executor):
                     f"request {rid}: no block for position {pos} before "
                     f"its next decode step")
             src.append(spare)
-            dst.append(blocks[pos // page])
+            dst.append(blocks[ring_slots(pos, window) // page])
         if src:
             src, dst = self._ints(src, torch.int64), \
                 self._ints(dst, torch.int64)
@@ -471,9 +480,9 @@ class KernelExecutor(Executor):
 
     def _decode_inputs(self, decode, kv):
         """(tokens (B,1), cached lengths (B,), block tables, state rows) of
-        a decode batch; a request on a page boundary writes into its
-        slot's spare page."""
-        page = self.serve.page_size
+        a decode batch; a request on a page boundary below the window (or
+        with none) writes into its slot's spare page."""
+        page, window = self.serve.page_size, self.cfg.sliding_window
         toks, lens, tables, rows = [], [], [], []
         for i, r in enumerate(decode):
             out = self.tokens[r.rid]
@@ -483,13 +492,13 @@ class KernelExecutor(Executor):
                     f"request {r.rid}: {n} tokens cached, the engine's "
                     f"allocation holds {kv.tokens_of(r.rid)}")
             blocks = kv.blocks_of(r.rid)
-            if n == len(blocks) * page:
+            if n == len(blocks) * page and not (window and n >= window):
                 spare = self.num_blocks + i
                 blocks.append(spare)
                 self._spare[r.rid] = (spare, n)
             toks.append([out[-1]])
             lens.append(n)
-            tables.append(blocks)
+            tables.append(ring_table(blocks, window, page))
             rows.append(self._row_of[r.rid])
         width = max(map(len, tables))
         tables = [b + [0] * (width - len(b)) for b in tables]
@@ -503,7 +512,8 @@ class KernelExecutor(Executor):
             toks, pos, table, row = self._prompt_inputs(r, kv)
             logits, aux = tf.forward(self.model, toks, pos, return_aux=True,
                                      last_only=True)
-            tf.write_prefill_to_cache(self.cache, aux, table, row)
+            tf.write_prefill_to_cache(self.cache, aux, table, row,
+                                      window=self.cfg.sliding_window)
             return tf.greedy_sample(logits, vocab)[:, 0]
 
         out, wall = self._launch("prefill", run, rids=[r.rid],
@@ -540,7 +550,8 @@ class KernelExecutor(Executor):
             p_logits, aux, d_logits, _ = tf.fused_pd_forward(
                 self.model, p_toks, pos, d_toks, lens[:, None], self.cache,
                 tables, lens, rows, f_decode=f)
-            tf.write_prefill_to_cache(self.cache, aux, p_table, p_row)
+            tf.write_prefill_to_cache(self.cache, aux, p_table, p_row,
+                                      window=self.cfg.sliding_window)
             return torch.cat([tf.greedy_sample(p_logits, vocab),
                               tf.greedy_sample(d_logits, vocab)])[:, 0]
 

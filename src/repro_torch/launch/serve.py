@@ -29,8 +29,8 @@ from typing import List
 import numpy as np
 import torch
 
-from repro_torch.config import (ServeConfig, get_config, get_reduced_config,
-                                replace)
+from repro_torch.config import (ServeConfig, get_one_card_config,
+                                get_reduced_config, replace)
 from repro_torch.core.engines import RapidEngine, drive
 from repro_torch.core.executor import KernelExecutor
 from repro_torch.core.request import Request
@@ -145,7 +145,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--full", action="store_true",
-                    help="the full published config (default: reduced)")
+                    help="the published widths: the published config, or "
+                    "its one-card cut where one card cannot hold it "
+                    "(default: reduced)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", default=None,
@@ -155,7 +157,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = serve_real.resolve_device(args.device)
-    cfg = get_config(args.arch) if args.full else \
+    cfg = get_one_card_config(args.arch) if args.full else \
         get_reduced_config(args.arch)
     if args.dtype:
         cfg = replace(cfg, dtype=args.dtype)

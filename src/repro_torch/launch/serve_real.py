@@ -33,8 +33,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.config import get_config, get_reduced_config, replace
+from repro_torch.config import get_one_card_config, get_reduced_config, \
+    replace
 from repro_torch.kvcache import KVCacheManager, kv_pages_for
+from repro_torch.models.attention import ring_table
 from repro_torch.models.transformer import (decode_forward, forward,
                                             fused_pd_forward, greedy_sample,
                                             init_cache, init_model,
@@ -86,8 +88,11 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
           page: int = PAGE, f_decode: float = 0.5) -> dict:
     """Serve ``requests`` (all arriving now) to completion.  Returns a
     summary with the finished requests, step counts by kind and whether
-    the KV pool and the decode slots ended fully reclaimed."""
+    the KV pool and the decode slots ended fully reclaimed.  Under a
+    sliding window a request holds blocks for its whole context, and its
+    block table is the ring of its first W / page blocks."""
     cfg = model.cfg
+    window = cfg.sliding_window
     dev, dtype = model.tok.device, model.tok.dtype
     max_ctx = max(len(r.prompt) + r.max_new for r in requests)
     kv = KVCacheManager(slots * kv_pages_for(max_ctx, page), page)
@@ -104,7 +109,8 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
         return torch.tensor(rows, dtype=torch.int32, device=dev)
 
     def tables(rids):
-        blocks = [kv.blocks_of(rid) for rid in rids]
+        blocks = [ring_table(kv.blocks_of(rid), window, page)
+                  for rid in rids]
         width = max(map(len, blocks))
         return tensor([b + [0] * (width - len(b)) for b in blocks])
 
@@ -146,11 +152,11 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
             p_logits, aux, d_logits, cache = fused_pd_forward(
                 model, p_tok, p_pos, d_tok, d_lens[:, None], cache, d_tab,
                 d_lens, d_slots, f_decode=f_decode)
-            write_prefill_to_cache(cache, aux, p_tab, p_slot)
+            write_prefill_to_cache(cache, aux, p_tab, p_slot, window=window)
         elif kind == "prefill":
             p_logits, aux = forward(model, p_tok, p_pos, return_aux=True,
                                     last_only=True)
-            write_prefill_to_cache(cache, aux, p_tab, p_slot)
+            write_prefill_to_cache(cache, aux, p_tab, p_slot, window=window)
         else:
             d_logits, cache = decode_forward(model, d_tok, d_lens[:, None],
                                              cache, d_tab, d_lens, d_slots)
@@ -206,7 +212,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--full", action="store_true",
-                    help="the full published config (default: reduced)")
+                    help="the published widths: the published config, or "
+                    "its one-card cut where one card cannot hold it "
+                    "(default: reduced)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", default=None,
@@ -217,7 +225,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch) if args.full else \
+    cfg = get_one_card_config(args.arch) if args.full else \
         get_reduced_config(args.arch)
     if args.dtype:
         cfg = replace(cfg, dtype=args.dtype)

@@ -11,6 +11,13 @@ The decode cache is the paged pool of ``kvcache/manager.py``:
 (num_blocks, page, Hkv, D) per layer, addressed through int32 block
 tables.  The reference's slot-dense cache is its special case with
 identity tables.  Writes into the pool are in place.
+
+Under a sliding window W the pool holds each sequence as a ring of W
+positions, the reference's ring-buffer cache (``cache_shape``,
+``prefill_into_cache``): position p lives at ring slot p % W, mapped
+through the first W / page entries of the sequence's block table
+(``ring_table``).  RoPE is applied before K is cached, so the order of
+the slots does not matter to attention.
 """
 from __future__ import annotations
 
@@ -93,6 +100,44 @@ def full_attention(p: Attention, cfg, x, positions, *, impl: str = "kernel"):
     return out.reshape(B, S, -1) @ p.wo, (k, v)
 
 
+def ring_pages(window: Optional[int], page: int) -> Optional[int]:
+    """Pages of a ``window``-slot ring (None without a window); raises
+    when ``page`` does not divide the window."""
+    if not window:
+        return None
+    if window % page:
+        raise ValueError(f"page {page} does not divide the sliding window "
+                         f"{window}: the ring's slots must be whole pages")
+    return window // page
+
+
+def ring_table(blocks, window: Optional[int], page: int):
+    """A sequence's block table from the blocks it holds (a list): all of
+    them, or under a window the first W / page, which hold its ring."""
+    n = ring_pages(window, page)
+    return blocks if n is None else blocks[:n]
+
+
+def check_ring_tables(block_tables, window: Optional[int], page: int):
+    """Under a window, block tables must be ring tables: at most W / page
+    entries (a wider table would make the decode kernels split more)."""
+    n = ring_pages(window, page)
+    if n is not None and block_tables.shape[1] > n:
+        raise ValueError(f"block tables of {block_tables.shape[1]} pages "
+                         f"under a window of {window} ({n} pages): pass "
+                         f"ring tables (ring_table)")
+
+
+def ring_slots(positions, window: Optional[int]):
+    """Where token ``positions`` live in the pool: p, or p % W."""
+    return positions % window if window else positions
+
+
+def ring_lens(lens, window: Optional[int]):
+    """The cached tokens attention reads: ``lens``, or at most W."""
+    return torch.clamp(lens, max=window) if window else lens
+
+
 def pool_rows(block_tables, positions, page: int):
     """Flat pool rows (block * page + offset) of token ``positions``
     (B, n) through ``block_tables`` (B, max_pages) -> (B*n,) int64."""
@@ -114,20 +159,21 @@ def decode_attention(p: Attention, cfg, x, positions, k_pages, v_pages,
     """One-token decode step over the paged pool.
 
     x (B, 1, d); positions (B, 1); k/v_pages (N, page, Hkv, D);
-    block_tables (B, max_pages) int32; seq_lens (B,) int32 = tokens
-    already cached.  The new token's K/V is written at position seq_lens
-    BEFORE attention, which then covers seq_lens + 1 tokens.
+    block_tables (B, max_pages) int32 (ring tables under a window);
+    seq_lens (B,) int32 = tokens already cached.  The new token's K/V is
+    written at position seq_lens (ring slot seq_lens % W) BEFORE
+    attention, which then covers seq_lens + 1 tokens (at most W).
     Returns out (B, 1, d); the pools are updated in place.
     """
-    if cfg.sliding_window:
-        raise NotImplementedError("ring-buffer (sliding window) decode is "
-                                  "not ported yet")
     check_impl(impl)
+    w = cfg.sliding_window
     B = x.shape[0]
     q, k1, v1 = _qkv(p, cfg, x)
     q, k1 = _rope(cfg, q, k1, positions)
-    rows = pool_rows(block_tables, seq_lens[:, None], k_pages.shape[1])
+    rows = pool_rows(block_tables, ring_slots(seq_lens, w)[:, None],
+                     k_pages.shape[1])
     write_kv(k_pages, v_pages, k1[:, 0], v1[:, 0], rows)
     attend = ops.paged_attention if impl == "kernel" else ref.paged_attention
-    out = attend(q[:, 0], k_pages, v_pages, block_tables, seq_lens + 1)
+    out = attend(q[:, 0], k_pages, v_pages, block_tables,
+                 ring_lens(seq_lens + 1, w))
     return out.reshape(B, 1, -1) @ p.wo

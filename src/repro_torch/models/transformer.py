@@ -1,11 +1,11 @@
-"""Decoder assembly for attention and Mamba mixers with dense FFNs.
+"""Decoder assembly for attention and Mamba mixers with dense or MoE FFNs.
 
 Counterpart of ``repro/models/transformer.py``.  Pre-norm residual blocks:
     x = x + mixer(rmsnorm(x))          mixer in {attn, mamba}
-    x = x + dense_ffn(rmsnorm(x))
+    x = x + ffn(rmsnorm(x))            ffn in {dense, moe}
 A plain loop over layers takes the place of the reference's scan over
 stacked periods; ``convert.py`` unstacks the reference's parameters.
-Any other mixer or FFN (MoE, xLSTM) raises ``NotImplementedError``.
+Any other mixer or FFN (xLSTM, none) raises ``NotImplementedError``.
 
 Entry points:
   * ``forward``          — prefill over full sequences (``return_aux``
@@ -18,6 +18,14 @@ Entry points:
                            attentions and ONE ``ssm_scan`` launch per
                            Mamba layer for the prefill.
 
+An MoE layer takes the reference's capacity policy of the same step:
+``forward`` with ``return_aux`` (the serving prefill) the inference
+policy, without it the training policy, ``decode_forward`` dropless; in
+``fused_pd_forward`` the prefill rows are routed as ``forward`` with
+``return_aux`` routes them and the decode rows dropless, apart, since
+grouping them together would change the groups, the capacity and which
+tokens drop.
+
 The cache is a list with one entry per layer.  An attention layer has a
 paged pool ``{"k", "v"}`` of ``(num_blocks, page, Hkv, D)``, and every
 attention layer uses the same block ids.  A Mamba layer has per-slot
@@ -25,8 +33,18 @@ state ``{"conv" (slots, d_conv-1, din), "ssm" (slots, din, ds) f32}``:
 row s belongs to the request in decode slot s, and the entry points take
 each row's ``slots`` as they take its block table.  The reference's
 slot-dense state is the case ``slots = arange(B)``.
+
+Under a sliding window W (Mixtral) each sequence's pool is a ring of W
+positions: position p lives at ring slot p % W, mapped through the first
+W / page entries of its block table (``attention.ring_table``), so the
+tables the entry points take hold at most W / page entries.  A prefill
+writes its last min(S, W) tokens; a decode writes at ``seq_lens % W``
+before attention and reads min(seq_lens + 1, W) slots, as the
+reference's ring cache does.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -40,20 +58,25 @@ from repro_torch.models.layers import (ParamInit, embed_tokens, lm_logits,
 
 
 class Block(nn.Module):
-    """``kind`` is the mixer: "attn" or "mamba"."""
+    """``kind`` is the mixer: "attn" or "mamba"; ``ffn_kind`` the FFN:
+    "dense" or "moe"."""
 
     def __init__(self, init: ParamInit, cfg, pos: int):
         super().__init__()
-        self.kind = cfg.mixer_at(pos)
-        if self.kind not in ("attn", "mamba") or cfg.ffn_at(pos) != "dense":
+        self.kind, self.ffn_kind = cfg.mixer_at(pos), cfg.ffn_at(pos)
+        if self.kind not in ("attn", "mamba") or \
+                self.ffn_kind not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: only attention or Mamba + dense FFN blocks "
-                f"are ported (layer {pos}: {self.kind}/{cfg.ffn_at(pos)})")
+                f"{cfg.name}: only attention or Mamba + dense or MoE FFN "
+                f"blocks are ported (layer {pos}: {self.kind}/"
+                f"{self.ffn_kind})")
         self.norm1 = init.ones(cfg.d_model)
         self.mixer = (attn_mod.init_attention(init, cfg)
                       if self.kind == "attn" else mamba_mod.Mamba(init, cfg))
         self.norm2 = init.ones(cfg.d_model)
-        self.ffn = moe_mod.init_dense_ffn(init, cfg)
+        self.ffn = (moe_mod.init_dense_ffn(init, cfg)
+                    if self.ffn_kind == "dense" else
+                    moe_mod.init_moe(init, cfg))
 
 
 class Transformer(nn.Module):
@@ -65,11 +88,6 @@ class Transformer(nn.Module):
         if cfg.frontend != "token":
             raise NotImplementedError(f"frontend {cfg.frontend!r} is not "
                                       "ported yet")
-        moe = [i for i in range(cfg.num_layers) if cfg.ffn_at(i) == "moe"]
-        if moe:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE FFN is not ported yet; layers {moe} "
-                f"are MoE layers")
         self.cfg = cfg
         self.tok = init.normal(cfg.vocab_padded, cfg.d_model, scale=1.0)
         if not cfg.tie_embeddings:
@@ -79,7 +97,7 @@ class Transformer(nn.Module):
             Block(init, cfg, i % cfg.period) for i in range(cfg.num_layers))
 
 
-def init_model(cfg, *, seed: int = 0, device="cpu", dtype=None,
+def init_model(cfg, *, device, seed: int = 0, dtype=None,
                generator=None) -> Transformer:
     """Random weights drawn on ``device`` from a seeded torch.Generator
     (or the one given); ``dtype`` defaults to the config's."""
@@ -90,9 +108,13 @@ def init_model(cfg, *, seed: int = 0, device="cpu", dtype=None,
         return Transformer(ParamInit(generator, device, dtype), cfg)
 
 
-def _ffn_residual(blk: Block, cfg, x):
-    return x + moe_mod.dense_ffn(blk.ffn, cfg,
-                                 rmsnorm(x, blk.norm2, cfg.norm_eps))
+def _ffn_residual(blk: Block, cfg, x, **moe_policy):
+    """x + ffn(rmsnorm(x)); an MoE layer routes x under ``moe_policy``
+    (``moe_ffn``'s ``dropless`` / ``inference``)."""
+    h = rmsnorm(x, blk.norm2, cfg.norm_eps)
+    if blk.ffn_kind == "dense":
+        return x + moe_mod.dense_ffn(blk.ffn, cfg, h)
+    return x + moe_mod.moe_ffn(blk.ffn, cfg, h, **moe_policy)
 
 
 def _read_state(c, slots):
@@ -130,7 +152,8 @@ def forward(model: Transformer, inputs, positions, *, impl: str = "kernel",
         else:
             out, state = mamba_mod.mamba_forward(blk.mixer, cfg, h,
                                                  impl=impl)
-        x = _ffn_residual(blk, cfg, x + out)
+        # return_aux is the serving prefill: the inference capacity policy
+        x = _ffn_residual(blk, cfg, x + out, inference=return_aux)
         if return_aux:
             aux.append(state)
     if last_only:
@@ -140,14 +163,13 @@ def forward(model: Transformer, inputs, positions, *, impl: str = "kernel",
 
 
 def init_cache(cfg, num_blocks: int, page: int, slots: int, *,
-               device="cpu", dtype=None):
+               device, dtype=None):
     """A zeroed cache: per attention layer a paged pool {"k", "v"}, each
     (num_blocks, page, Hkv, D); per Mamba layer the state of ``slots``
     decode slots, {"conv" (slots, d_conv-1, din) in ``dtype``,
-    "ssm" (slots, din, ds) float32}."""
-    if cfg.sliding_window:
-        raise NotImplementedError("ring-buffer (sliding window) caches are "
-                                  "not ported yet")
+    "ssm" (slots, din, ds) float32}.  Under a sliding window the page must
+    divide it (the ring's slots are whole pages)."""
+    attn_mod.ring_pages(cfg.sliding_window, page)
     dtype = dtype or getattr(torch, cfg.dtype)
     shape = (num_blocks, page, cfg.kv_heads_padded(1), cfg.head_dim)
     cache = []
@@ -167,24 +189,30 @@ def init_cache(cfg, num_blocks: int, page: int, slots: int, *,
 
 
 @torch.no_grad()
-def write_prefill_to_cache(cache, aux, block_tables, slots):
+def write_prefill_to_cache(cache, aux, block_tables, slots, *,
+                           window: Optional[int] = None):
     """Write ``forward(return_aux=True)`` products into the cache, in
     place: K/V (B,S,Hkv,D) into the pools at positions 0..S-1 of each
     sequence's ``block_tables`` (B, max_pages) row, and each Mamba
-    layer's final state into rows ``slots`` (B,) int64.  Returns the
-    cache."""
+    layer's final state into rows ``slots`` (B,) int64.  Under a sliding
+    ``window`` (the model's ``cfg.sliding_window``) only the last
+    min(S, W) positions are written, each once, at its ring slot (two
+    writes to one slot would land in no defined order on the card).
+    Returns the cache."""
     rows = None
     for c, a in zip(cache, aux):
         if "ssm" in c:
             _write_state(c, slots, a)
             continue
+        B, S = a["k"].shape[:2]
+        first = max(S - window, 0) if window else 0
         if rows is None:
-            B, S = a["k"].shape[:2]
-            positions = torch.arange(S, device=block_tables.device)
-            rows = attn_mod.pool_rows(block_tables, positions.expand(B, S),
-                                      c["k"].shape[1])
-        attn_mod.write_kv(c["k"], c["v"], a["k"].flatten(0, 1),
-                          a["v"].flatten(0, 1), rows)
+            positions = torch.arange(first, S, device=block_tables.device)
+            rows = attn_mod.pool_rows(
+                block_tables, attn_mod.ring_slots(positions, window)
+                .expand(B, S - first), c["k"].shape[1])
+        attn_mod.write_kv(c["k"], c["v"], a["k"][:, first:].flatten(0, 1),
+                          a["v"][:, first:].flatten(0, 1), rows)
     return cache
 
 
@@ -192,11 +220,15 @@ def write_prefill_to_cache(cache, aux, block_tables, slots):
 def decode_forward(model: Transformer, inputs, positions, cache,
                    block_tables, seq_lens, slots, *, impl: str = "kernel"):
     """One-token decode.  inputs (B,1) tokens; positions (B,1);
-    block_tables (B,max_pages) int32; seq_lens (B,) int32 tokens already
-    cached; slots (B,) int64 the Mamba state row of each sequence.
+    block_tables (B,max_pages) int32 (ring tables under a window);
+    seq_lens (B,) int32 tokens already cached; slots (B,) int64 the Mamba
+    state row of each sequence.
     Returns (logits (B,1,vocab_padded), cache) — the cache is updated in
     place."""
     cfg = model.cfg
+    if cfg.sliding_window:
+        attn_mod.check_ring_tables(block_tables, cfg.sliding_window,
+                                   _page(cache))
     x = embed_tokens(model, inputs)
     for blk, c in zip(model.layers, cache):
         h = rmsnorm(x, blk.norm1, cfg.norm_eps)
@@ -208,7 +240,7 @@ def decode_forward(model: Transformer, inputs, positions, cache,
             out, state = mamba_mod.mamba_decode_step(
                 blk.mixer, cfg, h, _read_state(c, slots))
             _write_state(c, slots, state)
-        x = _ffn_residual(blk, cfg, x + out)
+        x = _ffn_residual(blk, cfg, x + out, dropless=True)
     return lm_logits(model, x), cache
 
 
@@ -220,26 +252,31 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
     ``d_inputs`` (Bd,1) through every layer together.
 
     The prefill rows and the decode rows share each layer's projections
-    and FFN (one matrix product over both).  In an attention layer the
-    decode tokens' K/V are written into the pools and one ``unified_pd``
-    launch computes both attentions.  In a Mamba layer one ``ssm_scan``
+    and dense FFN (one matrix product over both); an MoE layer routes
+    them apart (the module docstring).  In an attention layer the decode
+    tokens' K/V are written into the pools (at their ring slots under a
+    window) and one ``unified_pd`` launch computes both attentions, the
+    prefill tiles within the window.  In a Mamba layer one ``ssm_scan``
     launch runs the prefill from a zero state, and the decode rows take
     one step on their ``slots``' (Bd,) state, updated in place.  Returns
     (p_logits (Bp,1,Vp) at the last position, aux per-layer prefill
     products as ``forward``'s, d_logits (Bd,1,Vp), cache) — the same
     products as the reference's forward + decode_forward step."""
     attn_mod.check_impl(impl)
-    if model.cfg.sliding_window:
-        raise NotImplementedError("ring-buffer (sliding window) decode is "
-                                  "not ported yet")
     cfg = model.cfg
+    w = cfg.sliding_window
+    if w:
+        attn_mod.check_ring_tables(block_tables, w, _page(cache))
     Bp, Sp = p_inputs.shape
     Bd = d_inputs.shape[0]
     n_p = Bp * Sp
     x = torch.cat([embed_tokens(model, p_inputs).flatten(0, 1),
                    embed_tokens(model, d_inputs).flatten(0, 1)])
     positions = torch.cat([p_positions.reshape(-1), d_positions.reshape(-1)])
-    rows = attn_mod.pool_rows(block_tables, seq_lens[:, None], _page(cache))
+    rows = attn_mod.pool_rows(block_tables,
+                              attn_mod.ring_slots(seq_lens, w)[:, None],
+                              _page(cache))
+    d_lens = attn_mod.ring_lens(seq_lens + 1, w)
     step = ops.unified_pd if impl == "kernel" else _ref_unified_pd
     aux = []
     for blk, c in zip(model.layers, cache):
@@ -251,8 +288,8 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
             kp = k[:n_p].view(Bp, Sp, *k.shape[1:])
             vp = v[:n_p].view(Bp, Sp, *v.shape[1:])
             o_p, o_d = step(q[:n_p].view(Bp, Sp, *q.shape[1:]), kp, vp,
-                            q[n_p:], c["k"], c["v"], block_tables,
-                            seq_lens + 1, f_decode=f_decode)
+                            q[n_p:], c["k"], c["v"], block_tables, d_lens,
+                            f_decode=f_decode, window=w)
             out = torch.cat([o_p.reshape(n_p, -1),
                              o_d.reshape(Bd, -1)]) @ blk.mixer.wo
             aux.append({"k": kp, "v": vp})
@@ -266,20 +303,27 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
             out = torch.cat([y_p.reshape(n_p, -1), y_d]) @ \
                 blk.mixer.out_proj
             aux.append(state)
-        x = _ffn_residual(blk, cfg, x + out)
+        x = x + out
+        if blk.ffn_kind == "dense":
+            x = _ffn_residual(blk, cfg, x)
+        else:
+            x = torch.cat([
+                _ffn_residual(blk, cfg, x[:n_p].view(Bp, Sp, -1),
+                              inference=True).flatten(0, 1),
+                _ffn_residual(blk, cfg, x[n_p:], dropless=True)])
     last = torch.cat([x[:n_p].view(Bp, Sp, -1)[:, -1], x[n_p:]])
     logits = lm_logits(model, last)[:, None]
     return logits[:Bp], aux, logits[Bp:], cache
 
 
 def _ref_unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
-                    seq_lens, *, f_decode):
+                    seq_lens, *, f_decode, window):
     """``ops.unified_pd``'s layouts over the plain version (f_decode only
     sets which SMs take which tiles first, so the plain version ignores
     it)."""
     o_p, o_d = ref.unified_pd(q_p.transpose(1, 2), k_p.transpose(1, 2),
                               v_p.transpose(1, 2), q_d, k_pages, v_pages,
-                              block_tables, seq_lens)
+                              block_tables, seq_lens, window=window)
     return o_p.transpose(1, 2), o_d
 
 

@@ -35,6 +35,7 @@ from repro_torch.kernels import ssm_scan as ssm_scan_mod
 from repro_torch.kernels.ssm_scan import check_scan
 from repro_torch.launch import serve_real
 from repro_torch.models import layers, mamba
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 
 ARCH = "jamba-1.5-large-398b"
@@ -279,7 +280,7 @@ def test_convert_keeps_float32_leaves_in_bf16_model():
             else:
                 assert t.dtype == torch.bfloat16, name
             np.testing.assert_array_equal(t.float().numpy(), want)
-    fresh = tf.init_model(cfg, seed=0)
+    fresh = tf.init_model(cfg, seed=0, device="cpu")
     m = fresh.layers[0].mixer
     assert m.A_log.dtype == m.D.dtype == torch.float32
     assert m.in_proj.dtype == torch.bfloat16
@@ -305,17 +306,36 @@ def test_jamba_config_matches_reference(reduced):
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_unchanged_jamba_raises_naming_moe_layers(reduced):
-    """Either config as it stands has MoE layers: building refuses, before
-    any weight is allocated."""
+    """Either config as it stands builds with an MoE FFN on each odd
+    layer and the published expert widths (the published config is built
+    on the meta device, which allocates nothing); only a layer kind that
+    is still not ported raises, naming the layer.  The name is kept from
+    when building refused the MoE layers, which it no longer does."""
     cfg = get_reduced_config(ARCH) if reduced else get_config(ARCH)
-    with pytest.raises(NotImplementedError, match=r"MoE.*\[1, 3, 5"):
-        tf.init_model(cfg)
+    model = tf.Transformer(layers.ParamInit(None, "meta", torch.bfloat16),
+                           cfg)
+    moe_layers = [i for i, b in enumerate(model.layers)
+                  if b.ffn_kind == "moe"]
+    assert moe_layers == list(range(1, cfg.num_layers, 2))
+    m = cfg.moe
+    assert model.layers[1].ffn.w_gate.shape == (m.num_experts, cfg.d_model,
+                                                m.d_ff_expert)
+    assert all(isinstance(model.layers[i].ffn, moe_mod.MoEFFN)
+               for i in moe_layers)
+    with pytest.raises(NotImplementedError, match=r"layer 1: mamba/none"):
+        tf.Transformer(layers.ParamInit(None, "meta", torch.bfloat16),
+                       replace(cfg, ffn_pattern=("dense", "none")))
 
 
-def test_serve_main_on_jamba_raises_until_moe_is_ported():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        serve_real.main(["--device", "cpu", "--arch", ARCH,
-                         "--requests", "1"])
+def test_serve_main_on_jamba_raises_until_moe_is_ported(capsys):
+    """The reduced published config, MoE layers and all, serves on the
+    CPU through serve_real's entry point.  The name is kept from when this
+    entry point refused the MoE layers, which it no longer does."""
+    assert serve_real.main(["--device", "cpu", "--arch", ARCH,
+                            "--dtype", "float32", "--requests", "2"]) == 0
+    out = capsys.readouterr().out
+    assert '"pool_reclaimed": true' in out
+    assert '"state_slots_reclaimed": true' in out
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +394,8 @@ def _port_prefilled(model, cfg, toks, slots, n_slots, page=8,
     np_ = -(-(S + 1) // page)
     blocks = np.random.RandomState(9).permutation(n_blocks)[:B * np_]
     tables = torch.from_numpy(blocks.reshape(B, np_).astype(np.int32))
-    cache = tf.init_cache(cfg, n_blocks, page, n_slots, dtype=torch.float32)
+    cache = tf.init_cache(cfg, n_blocks, page, n_slots, device="cpu",
+                          dtype=torch.float32)
     pos = torch.arange(S).expand(B, S)
     _, aux = tf.forward(model, torch.from_numpy(toks), pos, return_aux=True,
                         last_only=True)

@@ -77,6 +77,40 @@ def test_config_matches_reference():
         assert mine.kv_heads_padded(1) == theirs.kv_heads_padded(1)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mixtral-8x22b"])
+@pytest.mark.parametrize("reduced", [False, True])
+def test_mixtral_configs_match_reference(arch, reduced):
+    """Every field of the port's Mixtral configs (MoE sub-config and
+    window included) equals the reference's, and so do the helpers the
+    perfmodel reads."""
+    import dataclasses
+    from repro.config import get_config as jax_config
+    mine = get_reduced_config(arch) if reduced else get_config(arch)
+    theirs = jax_reduced_config(arch) if reduced else jax_config(arch)
+    for f in dataclasses.fields(mine):
+        a, b = getattr(mine, f.name), getattr(theirs, f.name)
+        if dataclasses.is_dataclass(a):
+            a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert a == b, f.name
+    for f in ("vocab_padded", "period", "num_periods"):
+        assert getattr(mine, f) == getattr(theirs, f), f
+    assert mine.param_count() == theirs.param_count()
+    assert mine.active_param_count() == theirs.active_param_count()
+    assert mine.kv_bytes_per_token() == theirs.kv_bytes_per_token()
+
+
+def test_one_card_cuts_keep_every_width():
+    """The one-card cuts change depth (and Jamba's FFN kind) only."""
+    from repro_torch.config import get_one_card_config
+    mix = get_one_card_config("mixtral-8x7b")
+    assert mix == replace(get_config("mixtral-8x7b"), num_layers=24)
+    assert 2 * mix.param_count() / 1e9 == pytest.approx(70.19, abs=0.01)
+    jamba = get_one_card_config("jamba-1.5-large-398b")
+    assert jamba == replace(get_config("jamba-1.5-large-398b"),
+                            num_layers=8, ffn_pattern=("dense",))
+    assert get_one_card_config("granite-8b") == get_config("granite-8b")
+
+
 def test_rmsnorm_rope_gelu_match_reference():
     rs = np.random.RandomState(0)
     x = rs.standard_normal((2, 5, 3, 32)).astype(np.float32) * 3
@@ -250,7 +284,8 @@ def test_paged_prefill_write_and_decode_match_dense(models):
     lens = torch.tensor([S], dtype=torch.int32)
     outs = []
     for blocks in ([0, 1, 2, 3], [9, 2, 6, 4]):
-        cache = tf.init_cache(cfg, 10, page, 1, dtype=torch.float32)
+        cache = tf.init_cache(cfg, 10, page, 1, device="cpu",
+                              dtype=torch.float32)
         tab = torch.tensor([blocks], dtype=torch.int32)
         slot = torch.tensor([0])
         tf.write_prefill_to_cache(cache, aux, tab, slot)
@@ -282,9 +317,9 @@ def test_convert_unstacks_bf16_leaves():
 
 def test_init_model_is_seeded_and_scaled():
     cfg = get_reduced_config("granite-8b")
-    a = tf.init_model(cfg, seed=3)
-    b = tf.init_model(cfg, seed=3)
-    c = tf.init_model(cfg, seed=4)
+    a = tf.init_model(cfg, seed=3, device="cpu")
+    b = tf.init_model(cfg, seed=3, device="cpu")
+    c = tf.init_model(cfg, seed=4, device="cpu")
     assert a.tok.dtype == torch.bfloat16
     assert torch.equal(a.layers[1].ffn.w_out, b.layers[1].ffn.w_out)
     assert not torch.equal(a.layers[1].ffn.w_out, c.layers[1].ffn.w_out)
@@ -294,7 +329,7 @@ def test_init_model_is_seeded_and_scaled():
     assert torch.equal(a.layers[0].norm1, torch.ones(cfg.d_model,
                                                      dtype=torch.bfloat16))
     with pytest.raises(NotImplementedError):
-        tf.init_model(replace(cfg, layer_pattern=("mlstm",)))
+        tf.init_model(replace(cfg, layer_pattern=("mlstm",)), device="cpu")
 
 
 def test_kv_cache_manager_lifecycle():
