@@ -77,7 +77,24 @@ the result line:
                would have chosen others for under 5 %; a planted window
                fault in the plain path must move these logits past their
                limit), and the decode step's device-busy share from a
-               profile.
+               profile;
+  8. llama   — LLaMA-3.1-70B at every published width, cut to 38 layers
+               (the config's one-card cut; random seeded weights, bf16,
+               69 GB): phase 4 on the smoke's 8 requests, then the engine
+               path of phase 6 on the reference's lmsys trace at 0.5 qps
+               for 20 s (seed 0: 7 requests arriving over 12.9 s), each
+               request entering the engine at its arrival.
+In phases 4, 5, 7 and 8 the decode steps run as CUDA graphs, one per
+(batch size, table width), captured at a shape's first step and replayed
+after it (``models/decode_graph.py``).  For each model the graph check
+compares, at the decode batch, three replayed steps (one crossing a page
+boundary, one at a smaller batch) with the eager ``decode_forward`` on the
+same inputs and cache (expected bit-equal; fails above TOL_LOGITS), and
+requires a planted stale input (a replay whose lens were not refreshed)
+to differ by more; then decode steps alone, eager and replayed, give each
+one's host ms, CUDA-event ms and device-busy share, with the graphs
+captured, their capture seconds and the memory their pool holds.  Each
+phase prints its seconds.
 The last two lines are the kernels' JSON record and the result line.
 """
 import contextlib
@@ -107,6 +124,7 @@ from repro_torch.kvcache import kv_pages_for  # noqa: E402
 from repro_torch.launch import serve as serve_engine  # noqa: E402
 from repro_torch.launch import serve_real  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import decode_graph as dg  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -303,9 +321,10 @@ def prefill_inputs(gen, B, Hq, Hkv, S, D, dtype):
 
 
 def decode_inputs(gen, lens, Hq, Hkv, D, page, dtype, spare_pages=4):
-    """q, pages and scattered block tables for sequences of ``lens``."""
+    """q, pages and scattered block tables for sequences of ``lens``, as
+    wide as the serving path's (``table_width``)."""
     B = len(lens)
-    mp = -(-max(lens) // page)
+    mp = dg.table_width(-(-max(lens) // page), None, page)
     N = B * mp + spare_pages
     return (randn(gen, B, Hq, D, dtype=dtype),
             randn(gen, N, page, Hkv, D, dtype=dtype),
@@ -952,8 +971,10 @@ def serving_requests(cfg):
 
 def init_full(cfg):
     """Random weights of ``cfg``, in its dtype, on the card from a seeded
-    generator."""
+    generator; prints the weights' bytes and the peak memory of the init
+    (each weight is drawn in float32 and cast alone)."""
     t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     model = tf.init_model(cfg, seed=SERVE["seed"], device=DEVICE)
     torch.cuda.synchronize()
     say("serve", phase="init", config=cfg.name, layers=cfg.num_layers,
@@ -961,6 +982,7 @@ def init_full(cfg):
         d_model=cfg.d_model, dtype=cfg.dtype,
         weights_gb=sum(p.numel() * p.element_size()
                        for p in model.parameters()) / 1e9,
+        init_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
         init_s=time.perf_counter() - t)
     return model
 
@@ -1137,11 +1159,12 @@ ENGINE_KEYS = ("tokens", "span_s", "wall_s", "tokens_per_s", "ttft_mean_s",
                "ttft_p95_s", "itl_mean_s", "itl_p95_s")
 
 
-def engine_full(model, real, reqs=None):
-    """The serving run's requests (default: ``serving_requests``) through
-    ``RapidEngine`` + ``KernelExecutor`` with the pool the scheduler sizes
-    from ``H100``; ``real`` is serve_real's (summary, tokens by rid) of
-    the same requests.  Returns the launch counts of the run."""
+def engine_full(model, real, reqs=None, arrivals=None):
+    """The serving run's requests (default: ``serving_requests``, all at
+    t = 0; or arriving at ``arrivals``, rid -> s) through ``RapidEngine``
+    + ``KernelExecutor`` with the pool the scheduler sizes from ``H100``;
+    ``real`` is serve_real's (summary, tokens by rid) of the same
+    requests, or None.  Returns the launch counts of the run."""
     cfg = model.cfg
     reqs = reqs or serving_requests(cfg)
     gc.collect()
@@ -1150,14 +1173,12 @@ def engine_full(model, real, reqs=None):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     result = serve_engine.serve_engine(model, reqs,
-                                       serve_engine.serve_config())
+                                       serve_engine.serve_config(),
+                                       arrivals=arrivals)
     torch.cuda.synchronize()
     launches = ops.launches()
     peak = torch.cuda.max_memory_allocated()
     s = serve_engine.summarize(result)
-    real_summary, real_tokens = real
-    same = sum(result["tokens"].get(r.rid) == real_tokens[r.rid]
-               for r in reqs)
     say("engine", phase="pool", config=cfg.name,
         pool_blocks=s["pool_blocks"], spare_pages=result["spare_pages"],
         pool_gb=s["pool_bytes"] / 1e9,
@@ -1166,14 +1187,30 @@ def engine_full(model, real, reqs=None):
     say("engine", phase="run", config=cfg.name, kernel_launches=launches,
         **{k: v for k, v in s.items()
            if k not in ("pool_blocks", "pool_bytes", "mem_free_after_pool")})
-    say("engine", phase="beside_serve_real", config=cfg.name,
-        clock={"engine": "engine clock (measured launches)",
-               "serve_real": "host wall clock"},
-        engine={k: s[k] for k in ENGINE_KEYS},
-        serve_real={k: real_summary[k] for k in ENGINE_KEYS
-                    if k in real_summary},
-        tokens_per_s_ratio=s["tokens_per_s"] / real_summary["tokens_per_s"],
-        requests_tokens_equal_serve_real=same, requests=len(reqs))
+    if arrivals:
+        say("engine", phase="arrivals", config=cfg.name,
+            arrivals_s=[arrivals[r.rid] for r in reqs],
+            prompt_lens=[len(r.prompt) for r in reqs],
+            max_new=[r.max_new for r in reqs],
+            first_launch_s={e["rids"][0]: e["t_start"]
+                            for e in reversed(result["log"])},
+            ttft_s=[r.ttft for r in result["requests"]])
+        require(all(e["t_start"] >= arrivals[e["rids"][0]]
+                    for e in result["log"] if e["kind"] != "decode"),
+                f"engine {cfg.name}: a prompt ran before it arrived")
+    if real is not None:
+        real_summary, real_tokens = real
+        same = sum(result["tokens"].get(r.rid) == real_tokens[r.rid]
+                   for r in reqs)
+        say("engine", phase="beside_serve_real", config=cfg.name,
+            clock={"engine": "engine clock (measured launches)",
+                   "serve_real": "host wall clock"},
+            engine={k: s[k] for k in ENGINE_KEYS},
+            serve_real={k: real_summary[k] for k in ENGINE_KEYS
+                        if k in real_summary},
+            tokens_per_s_ratio=s["tokens_per_s"] /
+            real_summary["tokens_per_s"],
+            requests_tokens_equal_serve_real=same, requests=len(reqs))
     launched = {k for k, n in launches.items() if n > 0}
     require(launched == path_kernels(cfg),
             f"engine {cfg.name}: launched {sorted(launched)}, its path runs "
@@ -1440,30 +1477,13 @@ def moe_layer_record(gen, model, reqs):
     return out
 
 
-def profile_decode(model, reqs, steps=5):
-    """Decode steps alone at the serving decode batch (4 sequences with
-    the first 4 prompts' lengths + 8 cached, zeroed K/V, ring tables): per
-    step the mean host wall time to the sampled tokens and the mean
-    CUDA-event time; then ``steps`` steps under torch.profiler: the
-    device-busy share (device time over wall time) and device time by
-    family.  Whether the step follows the weights or the host."""
-    cfg, page = model.cfg, SERVE["page"]
-    ns = [len(r.prompt) + 8 for r in reqs[:SERVE["slots"]]]
-    mp = len(attn_mod.ring_table(range(kv_pages_for(max(ns) + 1, page)),
-                                 cfg.sliding_window, page))
-    B = len(ns)
-    cache = tf.init_cache(cfg, B * mp, page, B, device=DEVICE)
-    tabs = torch.arange(B * mp, dtype=torch.int32, device=DEVICE).view(B, mp)
-    lens = torch.tensor(ns, dtype=torch.int32, device=DEVICE)
-    toks = torch.tensor([[int(r.prompt[-1])] for r in reqs[:B]],
-                        dtype=torch.int32, device=DEVICE)
-    slots = torch.arange(B, device=DEVICE)
-
-    def step():
-        logits, _ = tf.decode_forward(model, toks, lens[:, None], cache, tabs,
-                                      lens, slots)
-        return tf.greedy_sample(logits, cfg.vocab_size)
-
+def timed_steps(step, steps):
+    """``step()`` (one decode step; returns its tokens on the device)
+    after two warm-ups: per step the mean host wall time to the sampled
+    tokens and the mean CUDA-event time; then ``steps`` steps under
+    torch.profiler: the device-busy share (device time over wall time, and
+    over the event time of the unprofiled steps), device time by family,
+    and host calls a step that launch a kernel or a graph."""
     for _ in range(2):
         step().tolist()
     wall = dev = 0.0
@@ -1488,14 +1508,197 @@ def profile_decode(model, reqs, steps=5):
         prof_wall = time.perf_counter() - t
     by_family, top = device_time(prof)
     busy = sum(by_family.values())
-    return {"batch": B, "cached": ns, "table_pages": mp, "steps": steps,
-            "step_wall_ms": 1e3 * wall / steps,
+    names = [e.name for e in prof.events()]
+    return {"step_wall_ms": 1e3 * wall / steps,
             "step_event_ms": dev / steps, "profiled_wall_s": prof_wall,
             "device_busy_s": busy, "device_ms_per_step": 1e3 * busy / steps,
             "busy_share": busy / prof_wall if busy else "not measured",
+            # the profile's device time over the unprofiled steps' event
+            # time: the profiler's own host cost lowers ``busy_share``
+            "busy_share_of_event_ms": 1e3 * busy / dev if busy and dev else
+            "not measured",
             "device_s_by_family": by_family, "top_kernels_s": top,
-            "launches_per_step": sum(
-                e.name in LAUNCH_CALLS for e in prof.events()) / steps}
+            "launches_per_step": sum(n in LAUNCH_CALLS for n in names)
+            / steps,
+            "graph_launches_per_step": names.count("cudaGraphLaunch")
+            / steps}
+
+
+def profile_decode(model, reqs, steps=5):
+    """Decode steps alone at the serving decode batch (4 sequences with
+    the first 4 prompts' lengths + 8 cached, zeroed K/V, ring tables
+    padded to ``table_width``), eager and through ``DecodeGraphs`` (its
+    first step captures), on the same inputs: ``timed_steps`` of each,
+    and the graphs' captures, capture seconds and pool memory.  Whether
+    the step follows the weights or the host."""
+    cfg, page = model.cfg, SERVE["page"]
+    ns = [len(r.prompt) + 8 for r in reqs[:SERVE["slots"]]]
+    mp = len(attn_mod.ring_table(range(kv_pages_for(max(ns) + 1, page)),
+                                 cfg.sliding_window, page))
+    width = dg.table_width(mp, cfg.sliding_window, page)
+    B = len(ns)
+    cache = tf.init_cache(cfg, B * mp, page, B, device=DEVICE)
+    tabs = F.pad(torch.arange(B * mp, dtype=torch.int32, device=DEVICE)
+                 .view(B, mp), (0, width - mp))
+    lens = torch.tensor(ns, dtype=torch.int32, device=DEVICE)
+    toks = torch.tensor([[int(r.prompt[-1])] for r in reqs[:B]],
+                        dtype=torch.int32, device=DEVICE)
+    slots = torch.arange(B, device=DEVICE)
+    graphs = dg.DecodeGraphs(model, cache, max_batch=B)
+
+    def eager():
+        logits, _ = tf.decode_forward(model, toks, lens[:, None], cache, tabs,
+                                      lens, slots)
+        return tf.greedy_sample(logits, cfg.vocab_size)
+
+    out = {"batch": B, "cached": ns, "table_pages": mp, "table_width": width,
+           "steps": steps,
+           "eager": timed_steps(eager, steps),
+           "graph": timed_steps(lambda: graphs.step(toks, lens, tabs,
+                                                    slots), steps)}
+    out["graph"]["decode_graphs"] = graphs.stats()
+    out["graph_over_eager"] = {
+        k: out["graph"][k] / out["eager"][k] if out["eager"][k] else
+        "not measured"
+        for k in ("step_wall_ms", "step_event_ms", "device_ms_per_step")}
+    return out
+
+
+def mamba_rows(cache):
+    """A copy of every Mamba layer's state rows."""
+    return [{k: c[k].clone() for k in ("conv", "ssm")} for c in cache
+            if "ssm" in c]
+
+
+def put_mamba_rows(cache, rows):
+    for c, saved in zip([c for c in cache if "ssm" in c], rows):
+        for k, t in saved.items():
+            c[k].copy_(t)
+
+
+def decode_graph_check(model, reqs, gen):
+    """The captured decode step against the eager ``decode_forward`` on
+    the same inputs and cache, at the serving decode batch: 4 sequences
+    with the first 4 prompts' lengths cached (the first one a token short
+    of a page boundary), random K/V and Mamba state, scattered blocks,
+    and random input tokens at every step.
+    Each shape is captured first (its first step runs eagerly; the state
+    rows are put back after it, and the K/V it wrote lie where no later
+    step reads before writing).  Then three replayed steps: the batch of
+    4; the batch of 4 again, the first sequence now writing into a new
+    page (a new table entry); the first 3 (the batch size changes).  Each
+    is compared with the eager step from the same state, and must agree
+    within TOL_LOGITS (max|graph - eager| / max|eager|, expected 0).  Two
+    planted faults at the next step of the smaller batch, against its
+    eager step: a replay with no input refreshed (the graph's inputs still
+    the step before's) must differ by more than TOL_LOGITS; a replay whose
+    ``lens`` alone were not refreshed must differ by more than any sound
+    step (it moves one attention position by one, which a model with one
+    attention layer in eight, as the Jamba period, may see by less than
+    TOL_LOGITS)."""
+    cfg, page, W = model.cfg, SERVE["page"], model.cfg.sliding_window
+    B = SERVE["slots"]
+    ns = [len(r.prompt) for r in reqs[:B]]
+    ns[0] += (page - 1 - ns[0]) % page
+    need = [kv_pages_for(n + 5, page) for n in ns]
+    perm = torch.randperm(sum(need), generator=gen, device=DEVICE).tolist()
+    blocks = [perm[sum(need[:i]):sum(need[:i + 1])] for i in range(B)]
+    cache = tf.init_cache(cfg, sum(need), page, B, device=DEVICE)
+    for c in cache:
+        for t in c.values():
+            t.normal_(generator=gen)
+    plan = [ns, [n + 1 for n in ns], [n + 2 for n in ns[:B - 1]]]
+    fault_lens = [n + 3 for n in ns[:B - 1]]
+
+    toks = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+            for _ in range(len(plan) + 1)]
+
+    def inputs(i, lens):
+        tabs = [attn_mod.ring_table(blocks[i][:kv_pages_for(n + 1, page)],
+                                    W, page) for i, n in enumerate(lens)]
+        width = dg.table_width(max(map(len, tabs)), W, page)
+        return (toks[i][:len(lens)],
+                torch.tensor(lens, dtype=torch.int32, device=DEVICE),
+                torch.tensor([t + [0] * (width - len(t)) for t in tabs],
+                             dtype=torch.int32, device=DEVICE),
+                torch.arange(len(lens), device=DEVICE))
+
+    def eager(args):
+        """The eager step's logits from the current state; the state rows
+        are put back after it."""
+        saved = mamba_rows(cache)
+        toks, lens, tabs, rows = args
+        logits = tf.decode_forward(model, toks, lens[:, None], cache, tabs,
+                                   lens, rows)[0].clone()
+        put_mamba_rows(cache, saved)
+        return logits
+
+    graphs = dg.DecodeGraphs(model, cache, max_batch=B)
+    shapes = {}
+    for i, lens in enumerate(plan + [fault_lens]):
+        args = inputs(i, lens)
+        shapes.setdefault(tuple(args[2].shape), args)
+    for args in shapes.values():
+        saved = mamba_rows(cache)
+        graphs.step(*args)
+        require(graphs.ran == "capture", f"{cfg.name}: shape "
+                f"{tuple(args[2].shape)} was not captured at its first step")
+        put_mamba_rows(cache, saved)
+    steps = []
+    for i, lens in enumerate(plan):
+        args = inputs(i, lens)
+        want = eager(args)
+        nxt = graphs.step(*args)
+        require(graphs.ran == "replay", f"{cfg.name}: step {i} did not "
+                f"replay")
+        got = graphs.logits
+        steps.append({
+            "step": i, "batch": len(lens), "cached": lens,
+            "table_width": args[2].shape[1],
+            "table_entries_first": kv_pages_for(lens[0] + 1, page),
+            "max_abs_diff": (got.float() - want.float()).abs().max().item(),
+            "rel_err": rel_err(got, want),
+            "bit_equal": torch.equal(got, want),
+            "tokens_equal": torch.equal(
+                nxt, tf.greedy_sample(want, cfg.vocab_size)[:, 0])})
+    worst = max(s["rel_err"] for s in steps)
+    require(worst <= TOL_LOGITS,
+            f"{cfg.name}: the graph's logits differ from eager: {steps}")
+    args = inputs(len(plan), fault_lens)
+    require(tuple(args[2].shape) == (B - 1, steps[-1]["table_width"]),
+            f"{cfg.name}: the fault step's shape is not the last step's")
+    want = eager(args)
+    g = graphs.graphs[tuple(args[2].shape)]
+    saved = mamba_rows(cache)
+    g.replay()                          # no input refreshed
+    faults = {"stale_inputs": rel_err(g.logits, want)}
+    put_mamba_rows(cache, saved)
+    g.fill(*args)
+    g.inputs[1].copy_(torch.tensor(plan[-1], dtype=torch.int32,
+                                   device=DEVICE))
+    g.replay()                          # lens alone not refreshed
+    faults["stale_lens"] = rel_err(g.logits, want)
+    require(faults["stale_inputs"] > TOL_LOGITS, f"{cfg.name}: a replay of "
+            f"stale inputs moves the logits by {faults}, within {TOL_LOGITS}")
+    require(faults["stale_lens"] > worst, f"{cfg.name}: a replay with stale "
+            f"lens moves the logits by {faults}, no more than the sound "
+            f"steps' {worst}")
+    del cache
+    return {"steps": steps, "fault_rel_err": faults,
+            "decode_graphs": graphs.stats()}
+
+
+def graph_phase(model, reqs, gen):
+    """The graph check and the decode profile, eager beside graph."""
+    cfg = model.cfg
+    say("graph", phase="graph_vs_eager", config=cfg.name,
+        metric="max|graph-eager|/max|eager|", limit=TOL_LOGITS,
+        **decode_graph_check(model, reqs, gen))
+    say("profile", phase="decode_steps", config=cfg.name,
+        **profile_decode(model, reqs))
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1526,8 +1729,7 @@ def mixtral_phase(gen):
     require(fault > TOL_LOGITS, f"a planted window fault moves the held-"
             f"routing logits by {fault}, within {TOL_LOGITS}")
     say("profile", config=cfg.name, **profile_serving(model, cfg))
-    say("profile", phase="decode_steps", config=cfg.name,
-        **profile_decode(model, reqs))
+    graph_phase(model, reqs, gen)
     gc.collect()
     torch.cuda.empty_cache()
     launches[f"{cfg.name}-engine"] = engine_full(model, (summary, tokens),
@@ -1536,6 +1738,131 @@ def mixtral_phase(gen):
     gc.collect()
     torch.cuda.empty_cache()
     return recs, launches
+
+
+def kernels_phase(gen):
+    """Phase 3: every kernel against its plain version.  Returns the worst
+    errors at the test shapes (float32, bf16) and the records at the
+    serving shapes."""
+    worst_f32 = check_test_shapes(gen, torch.float32)
+    say("kernels", phase="f32_test_shapes", tolerance=TOL_F32,
+        max_abs_err=worst_f32)
+    worst_bf16 = check_test_shapes(gen, torch.bfloat16)
+    say("kernels", phase="bf16_test_shapes", tolerance=TOL_BF16,
+        tolerance_row=TOL_ROW, **worst_bf16)
+    cfg = get_config("granite-8b")
+    shapes = main_path_shapes(cfg, serving_requests(cfg))
+    recs = check_main_path_shapes(gen, shapes)
+    say("kernels", phase="main_path_shapes", tolerance_bf16=TOL_BF16,
+        tolerance_bf16_row=TOL_ROW, tolerance_fused_f32=TOL_FUSED,
+        f_decodes=F_DECODES, **recs)
+    say("kernels", phase="two_streams",
+        kernels=["paged_attention", "unified_pd"],
+        **check_two_streams(gen, shapes))
+    say("kernels", phase="scaling", config=cfg.name,
+        **kernel_scaling(gen, shapes))
+    return worst_f32, worst_bf16, recs
+
+
+def granite_phase(gen):
+    """Phases 4 and 6 for granite-8b.  Returns the launch counts by
+    path."""
+    cfg = get_config("granite-8b")
+    model = init_full(cfg)
+    launches = {}
+    launches["granite-8b"], summary, tokens = serve_full(model)
+    say("profile", config=cfg.name, **profile_serving(model, cfg))
+    graph_phase(model, serving_requests(cfg), gen)
+    launches["granite-8b-engine"] = engine_full(model, (summary, tokens))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def jamba_phase(gen):
+    """Phases 5 and 6 for the Jamba period, then its kernel-vs-plain
+    logits with float32 weights.  Returns the attention kernels' records
+    at its shapes, ssm_scan's record and the launch counts by path."""
+    cfg = jamba_period()
+    jamba_attn = check_main_path_shapes(
+        gen, main_path_shapes(cfg, serving_requests(cfg)))
+    say("kernels", phase="main_path_shapes", config="jamba-period",
+        **jamba_attn)
+    model = init_full(cfg)
+    scan = check_scan_serving_shape(
+        gen, model, serving_requests(cfg)[0].prompt)
+    say("kernels", phase="ssm_scan_serving_shape",
+        tolerance_row=TOL_SCAN_ROW, **scan)
+    launches = {}
+    launches["jamba-period"], summary, tokens = serve_full(model)
+    say("profile", config=cfg.name, **profile_serving(model, cfg))
+    graph_phase(model, serving_requests(cfg), gen)
+    launches["jamba-period-engine"] = engine_full(model, (summary, tokens))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same comparison with float32 weights (36 GB), where only the
+    # order of float32 sums separates the two paths
+    model = init_full(replace(cfg, dtype="float32"))
+    errs, _ = first_steps_kernel_vs_plain(model, serving_requests(cfg),
+                                          SERVE["page"])
+    fault = logits_fault(model, serving_requests(cfg)[0].prompt)
+    say("serve", phase="kernel_vs_plain_logits_f32", config=cfg.name,
+        metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS_F32,
+        fault_last_update_skipped=fault, **errs)
+    require(all(e < TOL_LOGITS_F32 for e in errs.values()),
+            f"float32 logits differ between kernel and plain: {errs}")
+    require(fault > TOL_LOGITS_F32, f"a planted scan fault moves the "
+            f"float32 logits by {fault}, within {TOL_LOGITS_F32}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return jamba_attn, scan, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: LLaMA-3.1-70B — the paper's dense model, on a trace
+# ---------------------------------------------------------------------------
+
+# the reference's lmsys trace (``serving/traces.py``) the engine path
+# serves: 7 requests arriving at 0.0-12.9 s, 9,379 prompt and 1,680 new
+# tokens, all of which fit the cut's 43,472-token pool at once
+LLAMA_TRACE = dict(trace="lmsys", qps=0.5, duration=20.0, seed=0)
+
+
+def llama():
+    """LLaMA-3.1-70B at every published width, cut to the 38 layers one
+    card holds (the config's one-card cut, ``configs/llama3_70b.py``)."""
+    return get_one_card_config("llama3-70b")
+
+
+def llama_phase(gen):
+    """Phase 8: LLaMA through ``serve_real`` on the smoke's requests, the
+    graph check, then the engine path on ``LLAMA_TRACE``.  Returns the
+    launch counts by path."""
+    cfg = llama()
+    model = init_full(cfg)
+    launches = {}
+    launches[cfg.name], _, _ = serve_full(model)
+    graph_phase(model, serving_requests(cfg), gen)
+    reqs, arrivals = serve_engine.trace_requests(cfg, **LLAMA_TRACE)
+    say("engine", phase="trace", config=cfg.name, **LLAMA_TRACE,
+        requests=len(reqs), prompt_tokens=sum(len(r.prompt) for r in reqs),
+        new_tokens=sum(r.max_new for r in reqs))
+    launches[f"{cfg.name}-engine-lmsys"] = engine_full(model, None, reqs,
+                                                       arrivals)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def timed(phase):
+    t = time.perf_counter()
+    yield
+    say("time", phase=phase, seconds=time.perf_counter() - t)
 
 
 def main():
@@ -1553,6 +1880,7 @@ def main():
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), nvidia_smi=card,
         torch=torch.__version__, cuda=torch.version.cuda)
+    t_start = time.perf_counter()
     try:
         t = time.perf_counter()
         libs = build.build_all()
@@ -1561,68 +1889,19 @@ def main():
             ptxas=build.ptxas_report())
 
         gen = torch.Generator(device=DEVICE).manual_seed(0)
-        worst_f32 = check_test_shapes(gen, torch.float32)
-        say("kernels", phase="f32_test_shapes", tolerance=TOL_F32,
-            max_abs_err=worst_f32)
-        worst_bf16 = check_test_shapes(gen, torch.bfloat16)
-        say("kernels", phase="bf16_test_shapes", tolerance=TOL_BF16,
-            tolerance_row=TOL_ROW, **worst_bf16)
-        cfg = get_config("granite-8b")
-        shapes = main_path_shapes(cfg, serving_requests(cfg))
-        recs = check_main_path_shapes(gen, shapes)
-        say("kernels", phase="main_path_shapes", tolerance_bf16=TOL_BF16,
-            tolerance_bf16_row=TOL_ROW, tolerance_fused_f32=TOL_FUSED,
-            f_decodes=F_DECODES, **recs)
-        say("kernels", phase="two_streams",
-            kernels=["paged_attention", "unified_pd"],
-            **check_two_streams(gen, shapes))
-        say("kernels", phase="scaling", config=cfg.name,
-            **kernel_scaling(gen, shapes))
-
-        model = init_full(cfg)
-        launches = {}
-        launches["granite-8b"], summary, tokens = serve_full(model)
-        say("profile", config=cfg.name, **profile_serving(model, cfg))
-        launches["granite-8b-engine"] = engine_full(model, (summary, tokens))
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        cfg = jamba_period()
-        jamba_attn = check_main_path_shapes(
-            gen, main_path_shapes(cfg, serving_requests(cfg)))
-        say("kernels", phase="main_path_shapes", config="jamba-period",
-            **jamba_attn)
-        model = init_full(cfg)
-        recs["ssm_scan"] = check_scan_serving_shape(
-            gen, model, serving_requests(cfg)[0].prompt)
-        say("kernels", phase="ssm_scan_serving_shape",
-            tolerance_row=TOL_SCAN_ROW, **recs["ssm_scan"])
-        launches["jamba-period"], summary, tokens = serve_full(model)
-        say("profile", config=cfg.name, **profile_serving(model, cfg))
-        launches["jamba-period-engine"] = engine_full(model, (summary, tokens))
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
-        # the same comparison with float32 weights (36 GB), where only the
-        # order of float32 sums separates the two paths
-        model = init_full(replace(cfg, dtype="float32"))
-        errs, _ = first_steps_kernel_vs_plain(model, serving_requests(cfg),
-                                              SERVE["page"])
-        fault = logits_fault(model, serving_requests(cfg)[0].prompt)
-        say("serve", phase="kernel_vs_plain_logits_f32", config=cfg.name,
-            metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS_F32,
-            fault_last_update_skipped=fault, **errs)
-        require(all(e < TOL_LOGITS_F32 for e in errs.values()),
-                f"float32 logits differ between kernel and plain: {errs}")
-        require(fault > TOL_LOGITS_F32, f"a planted scan fault moves the "
-                f"float32 logits by {fault}, within {TOL_LOGITS_F32}")
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        mixtral_attn, mixtral_launches = mixtral_phase(gen)
+        with timed("kernels"):
+            worst_f32, worst_bf16, recs = kernels_phase(gen)
+        with timed("granite-8b"):
+            launches = granite_phase(gen)
+        with timed("jamba-period"):
+            jamba_attn, recs["ssm_scan"], jamba_launches = jamba_phase(gen)
+        launches.update(jamba_launches)
+        with timed("mixtral-8x7b"):
+            mixtral_attn, mixtral_launches = mixtral_phase(gen)
         launches.update(mixtral_launches)
+        with timed("llama3-70b"):
+            launches.update(llama_phase(gen))
+        say("time", phase="total", seconds=time.perf_counter() - t_start)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

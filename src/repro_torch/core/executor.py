@@ -27,6 +27,7 @@ from repro_torch.core.events import FinishedEvent
 from repro_torch.core.scheduler import SchedView, StepPlan
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import ring_slots, ring_table
+from repro_torch.models.decode_graph import DecodeGraphs, table_width
 from repro_torch.perfmodel import batch as B
 from repro_torch.perfmodel import costs as C
 from repro_torch.perfmodel import interference as I
@@ -250,7 +251,10 @@ class KernelExecutor(Executor):
     scan over the padding): in a colocated plan the first prompt shares
     the fused launch and the rest follow it.  ``f_decode = None`` (the
     ARM's overallocation: both phases claim the whole chip) is passed as
-    1.0, where every CTA takes decode tiles first.
+    1.0, where every CTA takes decode tiles first.  A decode alone goes
+    through ``DecodeGraphs``: on the card its step is captured once per
+    (batch size, table width) and replayed, as the reference jits its
+    decode step; block tables are padded to ``table_width``.
 
     Durations.  ``duration_s`` is wall-clock from the start of a launch
     until its sampled tokens reach the host, host work included and the
@@ -289,7 +293,9 @@ class KernelExecutor(Executor):
     prefixes and the re-prefill of preempted requests.
 
     ``bind(engine)`` allocates the pool at the engine's KV block count
-    and subscribes to its events; ``log`` holds one record per launch.
+    and subscribes to its events; ``log`` holds one record per launch,
+    ``graph`` saying how a decode launch ran (``DecodeGraphs.ran``:
+    "capture", "replay" or "eager").
     """
 
     def __init__(self, model, *, prompts, serve, device,
@@ -311,6 +317,7 @@ class KernelExecutor(Executor):
         # rid -> (spare block, the position whose K/V it holds)
         self._spare: Dict[int, tuple] = {}
         self.cache = None
+        self.graphs: Optional[DecodeGraphs] = None
         self.num_blocks = 0
         self.busy_until = 0.0
         self._t = 0.0
@@ -332,6 +339,8 @@ class KernelExecutor(Executor):
             self.cfg, self.num_blocks + self.serve.max_batch_slots,
             self.serve.page_size, self.state_rows, device=self.device,
             dtype=self.model.tok.dtype)
+        self.graphs = DecodeGraphs(self.model, self.cache,
+                                   max_batch=self.serve.max_batch_slots)
         engine.subscribe(self._on_event)
 
     @property
@@ -422,7 +431,8 @@ class KernelExecutor(Executor):
         wall = time.perf_counter() - t0
         self.log.append(dict(
             kind=kind, t_start=self._t, wall_s=wall,
-            device_ms=start.elapsed_time(end) if cuda else None, **info))
+            device_ms=start.elapsed_time(end) if cuda else None,
+            graph=self.graphs.ran if kind == "decode" else None, **info))
         self._t += wall
         return out, wall
 
@@ -479,9 +489,10 @@ class KernelExecutor(Executor):
                     c["v"][dst] = c["v"][src]
 
     def _decode_inputs(self, decode, kv):
-        """(tokens (B,1), cached lengths (B,), block tables, state rows) of
-        a decode batch; a request on a page boundary below the window (or
-        with none) writes into its slot's spare page."""
+        """(tokens (B,1), cached lengths (B,), block tables padded to
+        ``table_width``, state rows) of a decode batch; a request on a
+        page boundary below the window (or with none) writes into its
+        slot's spare page."""
         page, window = self.serve.page_size, self.cfg.sliding_window
         toks, lens, tables, rows = [], [], [], []
         for i, r in enumerate(decode):
@@ -500,7 +511,7 @@ class KernelExecutor(Executor):
             lens.append(n)
             tables.append(ring_table(blocks, window, page))
             rows.append(self._row_of[r.rid])
-        width = max(map(len, tables))
+        width = table_width(max(map(len, tables)), window, page)
         tables = [b + [0] * (width - len(b)) for b in tables]
         return (self._ints(toks), self._ints(lens), self._ints(tables),
                 self._ints(rows, torch.int64))
@@ -523,14 +534,9 @@ class KernelExecutor(Executor):
         return wall
 
     def _decode(self, decode, arm_f, kv) -> float:
-        vocab = self.cfg.vocab_size
-
         def run():
             self._flush_spares(kv)
-            toks, lens, tables, rows = self._decode_inputs(decode, kv)
-            logits, _ = tf.decode_forward(self.model, toks, lens[:, None],
-                                          self.cache, tables, lens, rows)
-            return tf.greedy_sample(logits, vocab)[:, 0]
+            return self.graphs.step(*self._decode_inputs(decode, kv))
 
         out, wall = self._launch("decode", run,
                                  rids=[r.rid for r in decode],

@@ -86,3 +86,11 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     return {name: fn.launches for name, fn in LAUNCH_COUNTED.items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel name -> launches, negative to take back) to
+    the wrappers' counts: the launches a CUDA graph's replay runs, which
+    no wrapper call counts."""
+    for name, n in counts.items():
+        LAUNCH_COUNTED[name].launches += n

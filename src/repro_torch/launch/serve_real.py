@@ -15,7 +15,9 @@ Each step is one of three kinds:
   * prefill — a waiting prompt and no active decode: ``forward`` through
               ``flash_prefill``;
   * decode  — active decode slots and no prompt to admit:
-              ``decode_forward`` through ``paged_attention``.
+              ``decode_forward`` through ``paged_attention``, captured
+              once per (batch size, table width) and replayed on the card
+              (``DecodeGraphs``), as the reference jits its decode step.
 
     python -m repro_torch.launch.serve_real --full           # on the H100
     PYTHONPATH=src python -m repro_torch.launch.serve_real \\
@@ -37,9 +39,10 @@ from repro_torch.config import get_one_card_config, get_reduced_config, \
     replace
 from repro_torch.kvcache import KVCacheManager, kv_pages_for
 from repro_torch.models.attention import ring_table
-from repro_torch.models.transformer import (decode_forward, forward,
-                                            fused_pd_forward, greedy_sample,
-                                            init_cache, init_model,
+from repro_torch.models.decode_graph import DecodeGraphs, table_width
+from repro_torch.models.transformer import (forward, fused_pd_forward,
+                                            greedy_sample, init_cache,
+                                            init_model,
                                             write_prefill_to_cache)
 
 SLOTS = 4      # decode batch slots
@@ -98,20 +101,24 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
     kv = KVCacheManager(slots * kv_pages_for(max_ctx, page), page)
     cache = init_cache(cfg, kv.allocator.num_blocks, page, slots,
                        device=dev, dtype=dtype)
+    graphs = DecodeGraphs(model, cache, max_batch=slots)
     waiting = collections.deque(requests)
     slot_req: List[Optional[Request]] = [None] * slots
     free_slots = collections.deque(range(slots))
     done: List[Request] = []
     steps = collections.Counter()
     step_s = collections.Counter()      # host seconds by step kind
+    # decode steps and their host seconds by how they ran (DecodeGraphs.ran)
+    decode_runs, decode_s = collections.Counter(), collections.Counter()
 
     def tensor(rows):
         return torch.tensor(rows, dtype=torch.int32, device=dev)
 
     def tables(rids):
+        """Block tables padded with block 0 to ``table_width``."""
         blocks = [ring_table(kv.blocks_of(rid), window, page)
                   for rid in rids]
-        width = max(map(len, blocks))
+        width = table_width(max(map(len, blocks)), window, page)
         return tensor([b + [0] * (width - len(b)) for b in blocks])
 
     def finish_if_done(s, now):
@@ -153,19 +160,21 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
                 model, p_tok, p_pos, d_tok, d_lens[:, None], cache, d_tab,
                 d_lens, d_slots, f_decode=f_decode)
             write_prefill_to_cache(cache, aux, p_tab, p_slot, window=window)
+            d_next = greedy_sample(d_logits, cfg.vocab_size)[:, 0].tolist()
         elif kind == "prefill":
             p_logits, aux = forward(model, p_tok, p_pos, return_aux=True,
                                     last_only=True)
             write_prefill_to_cache(cache, aux, p_tab, p_slot, window=window)
+            d_next = []
         else:
-            d_logits, cache = decode_forward(model, d_tok, d_lens[:, None],
-                                             cache, d_tab, d_lens, d_slots)
-        d_next = (greedy_sample(d_logits, cfg.vocab_size)[:, 0].tolist()
-                  if active else [])
+            d_next = graphs.step(d_tok, d_lens, d_tab, d_slots).tolist()
         if new is not None:
             p_next = int(greedy_sample(p_logits, cfg.vocab_size)[0, 0])
         now = time.perf_counter()
         step_s[kind] += now - t_step
+        if kind == "decode":
+            decode_runs[graphs.ran] += 1
+            decode_s[graphs.ran] += now - t_step
         for s, tok in zip(active, d_next):
             r = slot_req[s]
             r.tokens.append(tok)
@@ -182,7 +191,9 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
     wall = time.perf_counter() - t0
     done.sort(key=lambda r: r.rid)
     return {"requests": done, "steps": dict(steps), "step_s": dict(step_s),
-            "wall_s": wall,
+            "decode_step_mean_s": {k: decode_s[k] / n
+                                   for k, n in decode_runs.items()},
+            "decode_graphs": graphs.stats(), "wall_s": wall,
             "pool_reclaimed": (kv.allocator.free_count ==
                                kv.allocator.num_blocks),
             "state_slots_reclaimed": sorted(free_slots) == list(range(slots))}
@@ -204,6 +215,8 @@ def summarize(result: dict) -> dict:
             "steps": result["steps"],
             "step_mean_s": {k: result["step_s"][k] / n
                             for k, n in result["steps"].items()},
+            "decode_step_mean_s": result["decode_step_mean_s"],
+            "decode_graphs": result["decode_graphs"],
             "pool_reclaimed": result["pool_reclaimed"],
             "state_slots_reclaimed": result["state_slots_reclaimed"]}
 

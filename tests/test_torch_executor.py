@@ -276,3 +276,47 @@ def test_serve_main_needs_gpu_unless_cpu_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_mod.main(["--requests", "1"])
+
+
+def test_trace_requests_arrive_over_time_and_match_reference():
+    """``launch/serve.py``'s trace path (lmsys, 0.3 qps for 10 s, seed 2:
+    3 requests of 810-2676 prompt tokens) on reduced LLaMA-3.1-70B: each
+    request enters the engine at its trace arrival, no launch of it
+    starts before that, and its greedy tokens are the reference's."""
+    model, params, jcfg = _models("llama3-70b")
+    reqs, arrivals = serve_mod.trace_requests(model.cfg, "lmsys", 0.3, 10.0,
+                                              2)
+    assert [len(r.prompt) for r in reqs] == [810, 1718, 2676]
+    result = serve_mod.serve_engine(model, reqs, serve_mod.serve_config(),
+                                    hw=HW, arrivals=arrivals)
+    s = serve_mod.summarize(result)
+    assert s["tokens_met"] and s["pool_reclaimed"] and \
+        s["state_rows_reclaimed"]
+    assert s["preemptions"] == 0 and s["rejected"] == 0
+    assert {rec.rid: rec.arrival for rec in result["records"]} == arrivals
+    starts = {}
+    for e in result["log"]:
+        assert e["t_start"] >= min(arrivals.values())
+        starts.setdefault(e["rids"][0], e["t_start"])
+    assert all(starts[rid] >= t for rid, t in arrivals.items())
+    assert all(r.token_times[0] > r.arrival for r in result["requests"])
+    step = jax.jit(functools.partial(jax_tf.decode_forward, cfg=jcfg, tp=1))
+    max_seq = max(len(r.prompt) + r.max_new for r in reqs)
+    for r in reqs:
+        want = _reference_greedy(params, jcfg, step, r.prompt, r.max_new,
+                                 max_seq)
+        assert result["tokens"][r.rid] == want, r.rid
+
+
+def test_serve_main_on_a_trace_on_cpu(capsys):
+    assert serve_mod.main(["--device", "cpu", "--dtype", "float32",
+                           "--arch", "llama3-70b", "--trace", "lmsys",
+                           "--qps", "0.3", "--duration", "10",
+                           "--seed", "2"]) == 0
+    out = capsys.readouterr().out
+    for key in ('"requests": 3', '"rejected": 0', '"preemptions": 0',
+                '"tokens_met": true', '"pool_reclaimed": true'):
+        assert key in out, key
+    with pytest.raises(ValueError, match="holds no request"):
+        serve_mod.main(["--device", "cpu", "--trace", "lmsys", "--qps",
+                        "0.05", "--duration", "1"])

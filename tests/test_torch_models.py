@@ -1,6 +1,7 @@
 """The port's model layers and transformer against the reference.
 
-Reduced granite-8b in float32; the reference's weights are converted
+Reduced granite-8b (and reduced LLaMA-3.1-70B for ``forward`` and
+``decode_forward``) in float32; the reference's weights are converted
 (``repro_torch.convert``) so both sides compute with the same numbers.
 The reference runs with ``impl="pallas"`` (interpret mode on the CPU);
 the port's kernel wrappers compute their plain versions on CPU tensors.
@@ -28,18 +29,27 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
-def _cfgs():
-    return (replace(get_reduced_config("granite-8b"), dtype="float32"),
-            jax_replace(jax_reduced_config("granite-8b"), dtype="float32"))
+def _cfgs(arch="granite-8b"):
+    return (replace(get_reduced_config(arch), dtype="float32"),
+            jax_replace(jax_reduced_config(arch), dtype="float32"))
+
+
+def _converted(arch):
+    """(port model, reference params, port cfg, reference cfg)."""
+    cfg, jcfg = _cfgs(arch)
+    params, _ = jax_tf.init_model(jax.random.PRNGKey(0), jcfg)
+    model = model_from_reference(jax.tree.map(np.asarray, params), cfg)
+    return model, params, cfg, jcfg
 
 
 @pytest.fixture(scope="module")
 def models():
-    """(port model, reference params, port cfg, reference cfg)."""
-    cfg, jcfg = _cfgs()
-    params, _ = jax_tf.init_model(jax.random.PRNGKey(0), jcfg)
-    model = model_from_reference(jax.tree.map(np.asarray, params), cfg)
-    return model, params, cfg, jcfg
+    return _converted("granite-8b")
+
+
+@pytest.fixture(scope="module")
+def llama_models():
+    return _converted("llama3-70b")
 
 
 def _tokens(rs, cfg, B, S):
@@ -100,8 +110,16 @@ def test_mixtral_configs_match_reference(arch, reduced):
 
 
 def test_one_card_cuts_keep_every_width():
-    """The one-card cuts change depth (and Jamba's FFN kind) only."""
+    """The one-card cuts change depth (and Jamba's FFN kind) only; the
+    LLaMA cut leaves the ``H100`` spec's scheduler a pool of 2,717 blocks
+    of 16 tokens."""
     from repro_torch.config import get_one_card_config
+    from repro_torch.core.scheduler import kv_pool_blocks
+    from repro_torch.perfmodel.hw import H100
+    llama = get_one_card_config("llama3-70b")
+    assert llama == replace(get_config("llama3-70b"), num_layers=38)
+    assert 2 * llama.param_count() / 1e9 == pytest.approx(69.23, abs=0.01)
+    assert kv_pool_blocks(llama, H100, 1, 16) == 2717
     mix = get_one_card_config("mixtral-8x7b")
     assert mix == replace(get_config("mixtral-8x7b"), num_layers=24)
     assert 2 * mix.param_count() / 1e9 == pytest.approx(70.19, abs=0.01)
@@ -165,6 +183,10 @@ def test_dense_ffn_matches_reference(glu, act):
 
 
 def test_forward_matches_reference(models):
+    _check_forward(models)
+
+
+def _check_forward(models):
     model, params, cfg, jcfg = models
     rs = np.random.RandomState(3)
     B, S = 2, 19
@@ -199,6 +221,18 @@ def _reference_prefilled(params, jcfg, toks, Sc):
 def test_decode_forward_matches_reference(models):
     """Paged decode over identity block tables == the reference's
     slot-dense decode: logits and the written cache."""
+    _check_decode_forward(models)
+
+
+@pytest.mark.parametrize("check", ["forward", "decode_forward"])
+def test_llama_matches_reference(llama_models, check):
+    """Reduced LLaMA-3.1-70B (G = 2, untied LM head): the granite cases'
+    ``forward`` and ``decode_forward`` checks."""
+    {"forward": _check_forward,
+     "decode_forward": _check_decode_forward}[check](llama_models)
+
+
+def _check_decode_forward(models):
     model, params, cfg, jcfg = models
     rs = np.random.RandomState(4)
     B, S, Sc, page = 2, 13, 32, 8

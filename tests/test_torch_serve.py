@@ -102,9 +102,10 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "    m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "    m.startswith('repro.'))\n"
-        "assert len(mods) >= 40, mods\n"
+        "assert len(mods) >= 42, mods\n"
         "assert {'repro_torch.kernels.ssm_scan', 'repro_torch.models.mamba',\n"
-        "        'repro_torch.models.moe',\n"
+        "        'repro_torch.models.moe', 'repro_torch.models.decode_graph',\n"
+        "        'repro_torch.serving.traces',\n"
         "        'repro_torch.configs.jamba_1_5_large_398b',\n"
         "        'repro_torch.configs.mixtral_8x7b',\n"
         "        'repro_torch.configs.mixtral_8x22b',\n"
