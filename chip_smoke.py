@@ -83,7 +83,33 @@ the result line:
                69 GB): phase 4 on the smoke's 8 requests, then the engine
                path of phase 6 on the reference's lmsys trace at 0.5 qps
                for 20 s (seed 0: 7 requests arriving over 12.9 s), each
-               request entering the engine at its arrival.
+               request entering the engine at its arrival;
+  9. gateway — after phase 6 for granite-8b, on the same model: the online
+               gateway's HTTP server (``GatewayHTTPServer``) in this process
+               on 127.0.0.1, over one RAPID worker on the card
+               (``RapidEngine`` + ``KernelExecutor``, the pool the scheduler
+               sizes) on ``RealTimeClock``, with ``stream_buffer`` 8.  Client
+               threads (``http.client``) send the reference's lmsys trace at
+               1 qps for 20 s (seed 0: 13 requests) each at its arrival, one
+               request that disconnects mid-stream, and one whose client
+               stops reading until the gateway has paused it (evicted from
+               the engine), then drains: it is prefilled again on the card
+               over its prompt and generated tokens and resumes its stream.
+               Every other stream must end ``finished`` with token indices
+               0..max_new-1 once each, the disconnected one ``cancelled``;
+               exactly the three attention kernels launched, a fused step
+               and a re-prefill; no preemption but the pause and no
+               rejection; pool, state rows and spare pages reclaimed;
+               /healthz "up" at every poll and /metrics valid JSON; and
+               99 % of the TokenEvents stamped within 5 ms after their
+               lane's launch ended, every one within 30 ms, once the plans
+               run in between are taken off (``launch/serve.py``
+               ``stamps_late``), each lane completion due by its
+               launch's end.  Reports
+               client-side and engine-side TTFT/ITL, the longest gap
+               between heartbeats, the first 64 tokens of each stream beside
+               serve_real's, and the paused request's tokens beside an
+               uninterrupted run of it.
 In phases 4, 5, 7 and 8 the decode steps run as CUDA graphs, one per
 (batch size, table width), captured at a shape's first step and replayed
 after it (``models/decode_graph.py``).  For each model the graph check
@@ -97,12 +123,19 @@ captured, their capture seconds and the memory their pool holds.  Each
 phase prints its seconds.
 The last two lines are the kernels' JSON record and the result line.
 """
+import asyncio
+import bisect
+import collections
 import contextlib
 import gc
+import http.client
 import json
 import os
+import socket
+import struct
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -129,6 +162,9 @@ from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
+from repro_torch.serving.clock import RealTimeClock  # noqa: E402
+from repro_torch.serving.gateway import GatewayPolicy  # noqa: E402
+from repro_torch.serving.http import GatewayHTTPServer  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1765,7 +1801,7 @@ def kernels_phase(gen):
 
 
 def granite_phase(gen):
-    """Phases 4 and 6 for granite-8b.  Returns the launch counts by
+    """Phases 4, 6 and 9 for granite-8b.  Returns the launch counts by
     path."""
     cfg = get_config("granite-8b")
     model = init_full(cfg)
@@ -1774,6 +1810,8 @@ def granite_phase(gen):
     say("profile", config=cfg.name, **profile_serving(model, cfg))
     graph_phase(model, serving_requests(cfg), gen)
     launches["granite-8b-engine"] = engine_full(model, (summary, tokens))
+    with timed("gateway"):
+        launches["granite-8b-gateway"] = gateway_phase(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1855,6 +1893,360 @@ def llama_phase(gen):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the online gateway and its HTTP server, on granite-8b
+# ---------------------------------------------------------------------------
+
+# the reference's lmsys trace at 1 qps for 20 s (seed 0: 13 requests, 17,392
+# prompt and 5,225 new tokens), each request sent over HTTP at its arrival
+# (offset by TRACE_AT); besides it one client that disconnects after token
+# CANCEL_AFTER, one that stops reading after token 2 until the gateway has
+# paused its stream, and first a burst: a prompt alone (one new token) whose
+# prefill holds the card while two more requests arrive, so that the second
+# of them is prefilled in a fused step beside the first one's decode (a
+# request that arrives while others decode is prefilled alone: the decode
+# lane is busy at its arrival, ROADMAP A4)
+GATEWAY_TRACE = dict(trace="lmsys", qps=1.0, duration=20.0, seed=0)
+GATEWAY_BURST = [dict(at=0.0, prompt_len=6000, max_new_tokens=1),
+                 dict(at=0.05, prompt_len=600, max_new_tokens=24),
+                 dict(at=0.05, prompt_len=700, max_new_tokens=24)]
+TRACE_AT = 1.5
+GATEWAY_CANCEL = dict(at=2.5, prompt_len=800, max_new_tokens=300)
+GATEWAY_SLOW = dict(at=3.5, prompt_len=1024, max_new_tokens=400)
+CANCEL_AFTER = 4
+STREAM_BUFFER = 8           # GatewayPolicy.stream_buffer
+COMPARE_TOKENS = 64         # tokens held beside serve_real's
+GATEWAY_DEADLINE_S = 240.0
+
+
+class Client:
+    """One HTTP client thread: POST /v1/generate at ``at`` seconds after
+    ``t0``, read the NDJSON stream line by line with the receive times,
+    and (``cancel_after``) disconnect after that token index, or
+    (``pause``) stop reading after token 2 until ``pause(rid)``
+    returns."""
+
+    def __init__(self, port, t0, at, body, cancel_after=None, pause=None):
+        self.port, self.t0, self.at, self.body = port, t0, at, body
+        self.cancel_after, self.pause = cancel_after, pause
+        self.lines, self.times, self.error = [], [], None
+        self.sent = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        try:
+            time.sleep(max(0.0, self.t0 + self.at - time.perf_counter()))
+            sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            if self.pause is not None:   # a small window fills up soon
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1024)
+            sock.settimeout(GATEWAY_DEADLINE_S)
+            sock.connect(("127.0.0.1", self.port))
+            conn = http.client.HTTPConnection("127.0.0.1", self.port)
+            conn.sock = sock
+            self.sent = time.perf_counter()
+            conn.request("POST", "/v1/generate", body=json.dumps(self.body))
+            resp = conn.getresponse()
+            if resp.status != 200:
+                raise RuntimeError(f"HTTP {resp.status}: {resp.read()}")
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                self.times.append(time.perf_counter())
+                ev = json.loads(line)
+                self.lines.append(ev)
+                if ev["type"] != "token":
+                    continue
+                if ev["index"] == self.cancel_after:
+                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                    struct.pack("ii", 1, 0))   # a reset
+                    sock.close()
+                    return
+                if ev["index"] == 2 and self.pause is not None:
+                    self.pause(ev["rid"])
+            conn.close()
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            self.error = repr(e)
+
+    def token_times(self):
+        return [t for t, ev in zip(self.times, self.lines)
+                if ev["type"] == "token"]
+
+
+def http_get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def stats_ms(xs):
+    return {"mean": float(np.mean(xs)) * 1e3,
+            "p95": float(np.percentile(xs, 95)) * 1e3} if xs else None
+
+
+def gateway_phase(model):
+    """Phase 9: ``GatewayHTTPServer`` in this process on 127.0.0.1, over
+    one RAPID worker (``RapidEngine`` + ``KernelExecutor`` with the pool
+    the scheduler sizes from ``H100``) on ``RealTimeClock``, driven by
+    client threads over HTTP: ``GATEWAY_BURST``, ``GATEWAY_TRACE`` at its
+    arrivals, a client that disconnects, and one that stops reading until
+    its stream is paused.  The objects of the earlier phases are frozen
+    out of the garbage collector's walks while it serves, as a server does
+    after its warm-up.  Returns the kernel launches of the run."""
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    trace, arrivals = serve_engine.trace_requests(cfg, **GATEWAY_TRACE)
+    prompts = serve_engine.SeededPrompts(cfg.vocab_size,
+                                         GATEWAY_TRACE["seed"])
+    gw = serve_engine.make_gateway(
+        model, serve_engine.serve_config(), prompts, clock=RealTimeClock(),
+        policy=GatewayPolicy(stream_buffer=STREAM_BUFFER))
+    worker = gw.registry.workers[0]
+    eng, ex = worker.engine, worker.engine.executor
+    beats = []
+    beat = worker._heartbeat
+    worker._heartbeat = lambda wid: (beats.append(gw.clock.now), beat(wid))
+    # each lane completion's due time (the engine's ``now`` before the
+    # launch plus its duration) and when it fired, on the gateway's clock
+    lanes, clock_at = [], gw.clock.at
+
+    def at_lane(t, fn):
+        if "_apply" not in fn.__qualname__:
+            return clock_at(t, fn)
+
+        def fire():
+            lanes.append((t, gw.clock.now))
+            fn()
+        return clock_at(t, fire)
+
+    gw.clock.at = at_lane
+    server = GatewayHTTPServer(gw, "127.0.0.1", 0, prompts=prompts)
+    errors, health, evicted, offset = [], [], set(), []
+
+    def wait_paused(rid):
+        """The slow client's stall: until the engine has evicted its
+        request (the gateway's backpressure pause), then a little more."""
+        deadline = time.perf_counter() + 60.0
+        while time.perf_counter() < deadline and rid not in evicted:
+            time.sleep(0.05)
+        time.sleep(0.3)
+
+    def on_engine(ev):
+        if type(ev).__name__ == "PhaseEvent" and ev.phase == "preempted":
+            evicted.add(ev.rid)
+
+    eng.subscribe(on_engine)
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        loop.set_exception_handler(
+            lambda lp, ctx: errors.append(str(ctx.get("exception") or
+                                              ctx.get("message"))))
+        await server.start()
+        port = server.port
+        offset.append(gw.clock.now - time.perf_counter())
+        ops.reset_launches()
+        t0 = time.perf_counter() + 0.2
+        clients = [Client(port, t0, b["at"], {
+            k: b[k] for k in ("prompt_len", "max_new_tokens")})
+            for b in GATEWAY_BURST]
+        clients += [Client(port, t0, TRACE_AT + arrivals[r.rid],
+                           {"prompt_len": len(r.prompt),
+                            "max_new_tokens": r.max_new}) for r in trace]
+        cancel = Client(port, t0, GATEWAY_CANCEL["at"],
+                        {k: GATEWAY_CANCEL[k] for k in
+                         ("prompt_len", "max_new_tokens")},
+                        cancel_after=CANCEL_AFTER)
+        slow = Client(port, t0, GATEWAY_SLOW["at"],
+                      {k: GATEWAY_SLOW[k] for k in
+                       ("prompt_len", "max_new_tokens")}, pause=wait_paused)
+        everyone = clients + [cancel, slow]
+        done = threading.Event()
+
+        def monitor():
+            while not done.is_set():
+                try:
+                    health.append(http_get(port, "/healthz"))
+                except Exception as e:  # noqa: BLE001
+                    health.append((0, repr(e)))
+                time.sleep(0.25)
+
+        mon = threading.Thread(target=monitor, daemon=True)
+        mon.start()
+        for c in everyone:
+            c.thread.start()
+        deadline = time.perf_counter() + GATEWAY_DEADLINE_S
+        while any(c.thread.is_alive() for c in everyone) and \
+                time.perf_counter() < deadline:
+            await asyncio.sleep(0.05)
+        # the disconnect's cancel reaches the engine at its next write
+        while gw._live and time.perf_counter() < deadline:
+            await asyncio.sleep(0.05)
+        launches = ops.launches()
+        done.set()
+        metrics = await loop.run_in_executor(
+            None, lambda: http_get(port, "/metrics"))
+        await loop.run_in_executor(None, mon.join, 5.0)
+        await server.close()
+        return clients, cancel, slow, launches, metrics
+
+    torch.cuda.synchronize()
+    gc.collect()
+    gc.freeze()
+    try:
+        clients, cancel, slow, launches, metrics = asyncio.run(main())
+    finally:
+        gc.unfreeze()
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t_phase
+    require(not errors, f"gateway: the event loop caught {errors[:3]}")
+    bad = [c.error for c in clients + [slow] if c.error]
+    require(not bad, f"gateway: clients failed: {bad[:3]}")
+    require(all(c.lines for c in clients + [slow, cancel]),
+            "gateway: a stream gave no line")
+    fleet = list(gw.stream.events())
+    terminal = {ev.rid: ev for ev in fleet if type(ev).__name__ in (
+        "FinishedEvent", "RejectedEvent", "CancelledEvent")}
+    streams = {c.lines[-1]["rid"]: c for c in clients + [slow]}
+    cancel_rid, slow_rid = cancel.lines[0]["rid"], slow.lines[-1]["rid"]
+    preempted = [ev.rid for ev in fleet if type(ev).__name__ ==
+                 "PhaseEvent" and ev.phase == "preempted"]
+    records = {r.rid: r for r in gw.metrics.records}
+    kinds = collections.Counter(e["kind"] for e in ex.log)
+    resumed = [e for e in ex.log if e["resumed"]]
+    launched = {k for k, n in launches.items() if n > 0}
+    states = [h[1]["workers"] if h[0] == 200 else h for h in health]
+    raw, net = serve_engine.token_stamp_lags(ex.log, eng.stream.events(),
+                                             offset[0])
+    # how far each lane was due after the end of the launch before it
+    # fired (the double wait would put it a whole launch after)
+    ends = sorted(e["host_end"] + offset[0] for e in ex.log)
+    due_after = [due - ends[bisect.bisect_right(ends, fired + 1e-6) - 1]
+                 for due, fired in lanes]
+    # client side against the engine's records
+    finished = {r.rid: r for r in eng.finished}
+    done = [rid for rid in streams if rid in finished]
+    client_ttft = [streams[rid].token_times()[0] - streams[rid].sent
+                   for rid in done]
+    client_itl = [b - a for rid in done for a, b in zip(
+        streams[rid].token_times(), streams[rid].token_times()[1:])]
+    engine_ttft = [finished[rid].ttft for rid in done]
+    engine_itl = [x for rid in done for x in finished[rid].itls]
+    gaps = np.diff(beats) if len(beats) > 1 else []
+    say("gateway", phase="run", config=cfg.name, **GATEWAY_TRACE,
+        requests=len(trace), burst=GATEWAY_BURST, cancelled_rid=cancel_rid,
+        paused_rid=slow_rid, kernel_launches=launches, launches=dict(kinds),
+        reprefills=[(e["rids"][0], e["resumed"], e["prefill_tokens"],
+                     e["kind"], e["wall_s"]) for e in resumed],
+        preempted=preempted,
+        pool_blocks=ex.num_blocks, pool_gb=ex.pool_bytes / 1e9,
+        decode_graphs=ex.graphs.stats(), served_s=served_s,
+        heartbeats=len(beats),
+        longest_heartbeat_gap_s=float(max(gaps)) if len(gaps) else None,
+        longest_heartbeat_gap_at_s=float(beats[int(np.argmax(gaps)) + 1])
+        if len(gaps) else None,
+        heartbeat_s=gw.policy.heartbeat_s,
+        heartbeat_timeout_s=gw.policy.heartbeat_timeout_s,
+        healthz_polls=len(health), clamped=gw.clock.stats.clamped,
+        dispatched=gw.clock.stats.dispatched)
+    say("gateway", phase="latency", config=cfg.name,
+        clock={"client": "host wall clock from the POST to each line",
+               "engine": "RealTimeClock stamps of the TokenEvents"},
+        client_ttft_ms=stats_ms(client_ttft), engine_ttft_ms=stats_ms(
+            engine_ttft), client_itl_ms=stats_ms(client_itl),
+        engine_itl_ms=stats_ms(engine_itl),
+        token_stamp_after_lane_end_ms={
+            "max_raw": max(raw) * 1e3, "max_net": max(net) * 1e3,
+            "p99_net": float(np.percentile(net, 99)) * 1e3,
+            "p95_raw": float(np.percentile(raw, 95)) * 1e3,
+            "raw_over_limit": sum(x > serve_engine.STAMP_P99_S
+                                  for x in raw),
+            "net_over_limit": sum(x > serve_engine.STAMP_P99_S
+                                  for x in net),
+            "tokens": len(raw),
+            "limit_p99_net": serve_engine.STAMP_P99_S * 1e3,
+            "limit_max_net": serve_engine.STAMP_MAX_S * 1e3}
+        if raw else None, lanes=len(lanes),
+        lane_due_after_launch_end_ms_max=max(due_after) * 1e3
+        if due_after else None)
+    for rid, c in streams.items():
+        require(c.lines[-1]["type"] == "finished",
+                f"gateway: request {rid}'s stream ended in {c.lines[-1]}")
+        idx = [ev["index"] for ev in c.lines if ev["type"] == "token"]
+        require(idx == list(range(c.body["max_new_tokens"])),
+                f"gateway: request {rid}'s token indices are not "
+                f"0..{c.body['max_new_tokens'] - 1} once each")
+    require(type(terminal.get(cancel_rid)).__name__ == "CancelledEvent",
+            f"gateway: the disconnected stream ended in "
+            f"{terminal.get(cancel_rid)}")
+    require(preempted == [slow_rid], f"gateway: preempted {preempted}, "
+            f"only the paused stream {slow_rid} should be")
+    require(not any(r.rejected for r in records.values()),
+            "gateway: a request was rejected")
+    require(sum(r.preemptions for r in records.values()
+                if not r.cancelled) == 1,
+            "gateway: preemptions other than the scripted pause")
+    require(launched == path_kernels(cfg),
+            f"gateway: launched {sorted(launched)}, its path runs "
+            f"{sorted(path_kernels(cfg))}: {launches}")
+    require(kinds["fused"] >= 1, f"gateway: no fused step: {dict(kinds)}")
+    require(resumed and all(e["rids"][0] == slow_rid for e in resumed),
+            "gateway: no re-prefill of the paused request alone")
+    kv = eng.kv
+    require(kv.num_requests == 0 and kv.allocator.free_count ==
+            kv.allocator.num_blocks, "gateway: KV pool not reclaimed")
+    require(ex.rows_free == ex.state_rows and not ex._spare,
+            "gateway: state rows or spare pages not reclaimed")
+    require(states and all(s == {"rapid-0": "up"} for s in states),
+            f"gateway: /healthz read "
+            f"{[s for s in states if s != {'rapid-0': 'up'}][:3]}")
+    require(metrics[0] == 200 and "fleet" in metrics[1],
+            f"gateway: /metrics gave {str(metrics)[:200]}")
+    require(due_after and max(due_after) <= 1e-4,
+            f"gateway: of {len(lanes)} lane completions one was due "
+            f"{max(due_after, default=0) * 1e3:.3f} ms after its launch's "
+            f"end")
+    late = serve_engine.stamps_late(net)
+    require(late is None, f"gateway: {late}")
+    # the tokens beside serve_real's greedy tokens for the same prompts,
+    # once the gateway's pool is freed
+    tokens = ex.tokens
+    del gw, server, eng, ex, worker, beat
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rids = sorted(streams)
+    reqs = [serve_real.Request(rid, prompts[rid], min(
+        COMPARE_TOKENS, streams[rid].body["max_new_tokens"])) for rid in rids]
+    out = serve_real.serve(model, reqs, slots=SERVE["slots"],
+                           page=SERVE["page"], f_decode=SERVE["f_decode"])
+    real = {r.rid: r.tokens for r in out["requests"]}
+    same = sum(tokens[rid][:len(real[rid])] == real[rid] for rid in rids)
+    alone = serve_real.serve(model, [serve_real.Request(
+        slow_rid, prompts[slow_rid], GATEWAY_SLOW["max_new_tokens"])],
+        slots=SERVE["slots"], page=SERVE["page"],
+        f_decode=SERVE["f_decode"])["requests"][0].tokens
+    got = tokens[slow_rid]
+    first_diff = next((i for i, (a, b) in enumerate(zip(got, alone))
+                       if a != b), None)
+    say("gateway", phase="beside_serve_real", config=cfg.name,
+        compared_tokens=COMPARE_TOKENS, streams=len(rids),
+        streams_tokens_equal_serve_real=same,
+        paused_request={"rid": slow_rid, "resumed_at_token": [
+            e["resumed"] for e in resumed], "tokens": len(got),
+            "equal_uninterrupted": got == alone,
+            "first_difference_at": first_diff},
+        seconds=time.perf_counter() - t)
     return launches
 
 

@@ -144,6 +144,8 @@ class Engine:
         self.executor = executor if executor is not None else \
             PerfModelExecutor(cfg, hw, colocated=sched.colocated,
                               lane_chips=lane_chips)
+        sched.reprefill_context = getattr(self.executor,
+                                          "reprefills_context", False)
         self.arm = getattr(sched, "arm", None)     # rapid compat
         # queues: named order-preserving indexed queues (O(1) remove /
         # membership + incremental load accounting, core/queues.py), also
@@ -256,7 +258,8 @@ class Engine:
                 self.kv.restore_hit_tokens(r.rid, r.prompt_len))
             try:
                 r.blocks = self.kv.allocate_prompt(
-                    r.rid, r.prompt_len, session_id=r.session_id,
+                    r.rid, self.scheduler.kv_tokens(r),
+                    session_id=r.session_id,
                     max_prefix=r.cached_prefix_len)
             except OutOfBlocks:
                 # defensive: scheduler projections and pool state can
@@ -303,6 +306,10 @@ class Engine:
             if plan.decode is not None:
                 plan.decode.joins = [r for r in plan.decode.joins
                                      if r.rid not in failed_admits]
+        # a lane ends ``duration`` after ``now``, which is read before the
+        # launch: on a real-time clock a ``KernelExecutor`` has already
+        # spent the launch's wall time inside ``execute`` (on the virtual
+        # clock time stands still there, so this equals ``loop.after``)
         outs = self.executor.execute(plan, view)
         if plan.prefill is not None:
             batch = plan.prefill.batch
@@ -322,8 +329,8 @@ class Engine:
             self._lane_cost["prefill"] = outs.prefill.cost
             self.inflight_prefill_tokens = sum(r.prefill_tokens_needed
                                                for r in batch)
-            self.loop.after(outs.prefill.duration_s,
-                            lambda b=batch: self._prefill_done(b))
+            self.loop.at(now + outs.prefill.duration_s,
+                         lambda b=batch: self._prefill_done(b))
         if plan.decode is not None:
             for r in plan.decode.joins:
                 self.queues["pending_join"].remove(r)
@@ -334,15 +341,15 @@ class Engine:
             self._lane_cost["decode"] = outs.decode.cost
             self._lane_f["decode"] = plan.decode.f_decode
             batch = list(self.running)
-            self.loop.after(outs.decode.duration_s,
-                            lambda b=batch: self._decode_done(b))
+            self.loop.at(now + outs.decode.duration_s,
+                         lambda b=batch: self._decode_done(b))
         if plan.hybrid is not None:
             self._lane_busy["step"] = True
             self._lane_cost["step"] = outs.hybrid.cost
             batch = list(self.running)
             chunks = plan.hybrid.chunks
-            self.loop.after(outs.hybrid.duration_s,
-                            lambda b=batch, c=chunks: self._step_done(b, c))
+            self.loop.at(now + outs.hybrid.duration_s,
+                         lambda b=batch, c=chunks: self._step_done(b, c))
         for retry in plan.retries:
             self.loop.after(
                 retry.delay_s,

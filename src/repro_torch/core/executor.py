@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.events import FinishedEvent
+from repro_torch.core.events import FinishedEvent, PhaseEvent
 from repro_torch.core.scheduler import SchedView, StepPlan
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import ring_slots, ring_table
@@ -281,25 +281,50 @@ class KernelExecutor(Executor):
     below W, and is copied into the ring's block of its position; from W
     on the ring slot lies in a block the request already holds.
 
-    Mamba state rows.  A request holds a row from its prefill until the
-    engine's ``FinishedEvent`` (also while it waits to join the decode
-    batch, which ``max_batch_slots`` does not bound).  There is one row
-    for each request in ``prompts``; running out of rows raises, and a
-    live row is never overwritten.
+    Tokens.  ``prompts`` maps a request id to its prompt tokens and is
+    read at each prefill, so a front end may fill it as requests arrive;
+    ``tokens`` (default: a dict of its own) maps it to the tokens it has
+    generated.  Workers share both, so a request that leaves one worker
+    (a failover clone keeps its rid; a paused or migrated request keeps
+    its ``tokens_generated`` too) is prefilled again on another.
+
+    The re-prefill of a preempted request.  An evicted request (KV
+    pressure, a gateway's backpressure pause, a cancel) comes back with
+    its ``tokens_generated``; recompute on resume prefills its prompt and
+    those tokens again from position 0, and the next greedy token is its
+    token ``tokens_generated``.  ``reprefills_context`` tells the engine
+    so: its scheduler admits, and it allocates, such a request for its
+    ``context_len`` (``Scheduler.kv_tokens``), not its prompt alone.  A
+    Mamba row starts again from zero state, as any prefill does.
+
+    Mamba state rows.  A request holds a row from its prefill until it
+    leaves the engine: its ``FinishedEvent``, or the ``preempted`` phase
+    of an eviction (also while it waits to join the decode batch, which
+    ``max_batch_slots`` does not bound).  ``state_rows`` defaults to the
+    engine's KV block count, which a request holding a row holds one of:
+    free for a model without Mamba layers, whose rows hold nothing; a
+    model with them passes fewer.  Running out of rows raises, and a live
+    row is never overwritten.
 
     What it does not run raises ``NotImplementedError``: hybrid plans,
     split-pool engines and their KV transfers (disagg), what-if
-    ``price_batch`` pricing (it would run the model), session-cached
-    prefixes and the re-prefill of preempted requests.
+    ``price_batch`` pricing (it would run the model), and a prefill after
+    a cached prefix (a session's, or a gateway checkpoint's restore).
 
     ``bind(engine)`` allocates the pool at the engine's KV block count
     and subscribes to its events; ``log`` holds one record per launch,
     ``graph`` saying how a decode launch ran (``DecodeGraphs.ran``:
-    "capture", "replay" or "eager").
+    "capture", "replay" or "eager"), ``plan`` which ``execute`` call it
+    belongs to, ``resumed`` how many generated tokens a prefill ran over
+    after the prompt, and ``host_end`` the host's ``time.perf_counter()``
+    when its tokens reached the host.
     """
 
+    reprefills_context = True
+
     def __init__(self, model, *, prompts, serve, device,
-                 hw: HardwareSpec = H100):
+                 hw: HardwareSpec = H100, state_rows: Optional[int] = None,
+                 tokens: Optional[Dict[int, List[int]]] = None):
         self.model = model
         self.cfg = model.cfg
         self.serve = serve
@@ -307,12 +332,10 @@ class KernelExecutor(Executor):
         if model.tok.device.type != self.device.type:
             raise ValueError(f"model on {model.tok.device}, executor on "
                              f"{self.device}")
-        self.prompts = {rid: np.asarray(p, dtype=np.int32)
-                        for rid, p in prompts.items()}
-        self.tokens: Dict[int, List[int]] = {}
-        # one row for each request served: a request never holds two
-        self.state_rows = len(self.prompts)
-        self._free_rows = list(range(self.state_rows - 1, -1, -1))
+        self.prompts = prompts
+        self.tokens: Dict[int, List[int]] = {} if tokens is None else tokens
+        self.state_rows = state_rows
+        self._free_rows: List[int] = []
         self._row_of: Dict[int, int] = {}
         # rid -> (spare block, the position whose K/V it holds)
         self._spare: Dict[int, tuple] = {}
@@ -321,20 +344,24 @@ class KernelExecutor(Executor):
         self.num_blocks = 0
         self.busy_until = 0.0
         self._t = 0.0
+        self._plans = 0
         self.log: List[dict] = []
         self._priced = PerfModelExecutor(self.cfg, hw, colocated=True)
 
     # -- set-up ---------------------------------------------------------------
     def bind(self, engine) -> None:
         """Allocate the paged pool: the engine's block count, whole, plus
-        one spare page per decode slot; and take back state rows on the
-        engine's ``FinishedEvent``s."""
+        one spare page per decode slot, and the state rows; and take back
+        a request's row and spare page when it leaves the engine."""
         if not engine.scheduler.colocated:
             raise NotImplementedError(
                 "KernelExecutor runs colocated engines only: split-pool "
                 "(disagg) execution is the ROADMAP item 'hybrid and "
                 "disagg real execution'")
         self.num_blocks = engine.kv.allocator.num_blocks
+        if self.state_rows is None:
+            self.state_rows = self.num_blocks
+        self._free_rows = list(range(self.state_rows - 1, -1, -1))
         self.cache = tf.init_cache(
             self.cfg, self.num_blocks + self.serve.max_batch_slots,
             self.serve.page_size, self.state_rows, device=self.device,
@@ -353,7 +380,8 @@ class KernelExecutor(Executor):
         return len(self._free_rows)
 
     def _on_event(self, ev) -> None:
-        if isinstance(ev, FinishedEvent):
+        if isinstance(ev, FinishedEvent) or (
+                isinstance(ev, PhaseEvent) and ev.phase == "preempted"):
             self._spare.pop(ev.rid, None)
             row = self._row_of.pop(ev.rid, None)
             if row is not None:
@@ -384,16 +412,13 @@ class KernelExecutor(Executor):
         for r in prefill:
             if r.cached_prefix_len > 0:
                 raise NotImplementedError(
-                    f"request {r.rid}: prefill after a session-cached "
-                    f"prefix is ROADMAP A6 (sessions)")
-            if r.preemptions > 0:
-                raise NotImplementedError(
-                    f"request {r.rid}: the re-prefill of a preempted "
-                    f"request (prompt and generated tokens) is not run yet "
-                    f"(ROADMAP §C)")
+                    f"request {r.rid}: prefill after a cached prefix (a "
+                    f"session's, or a restored KV checkpoint's) is ROADMAP "
+                    f"A5")
         decode = list(view.running) + list(plan.decode.joins) \
             if plan.decode else []
         priced = self._priced.execute(plan, view)
+        self._plans += 1
         wait = max(0.0, self.busy_until - view.now)
         self._t = view.now + wait
         spent = 0.0
@@ -428,9 +453,11 @@ class KernelExecutor(Executor):
         if cuda:
             end.record()
         out = toks.tolist()
-        wall = time.perf_counter() - t0
+        host_end = time.perf_counter()
+        wall = host_end - t0
         self.log.append(dict(
-            kind=kind, t_start=self._t, wall_s=wall,
+            kind=kind, plan=self._plans, t_start=self._t, wall_s=wall,
+            host_end=host_end,
             device_ms=start.elapsed_time(end) if cuda else None,
             graph=self.graphs.ran if kind == "decode" else None, **info))
         self._t += wall
@@ -449,14 +476,33 @@ class KernelExecutor(Executor):
     def _ints(self, rows, dtype=torch.int32):
         return torch.tensor(rows, dtype=dtype, device=self.device)
 
-    def _prompt_inputs(self, r, kv):
-        prompt = self.prompts[r.rid]
+    def _context(self, r, kv) -> np.ndarray:
+        """The tokens a prefill of ``r`` runs over: its prompt, then, for a
+        request resumed after an eviction, the ``tokens_generated`` tokens
+        it had generated (the engine allocated slots for them all)."""
+        prompt = np.asarray(self.prompts[r.rid], dtype=np.int32)
         if len(prompt) != r.prompt_len:
             raise RuntimeError(f"request {r.rid}: prompt of {len(prompt)} "
                                f"tokens, the engine has {r.prompt_len}")
+        g = r.tokens_generated
+        done = self.tokens.get(r.rid, [])[:g]
+        self.tokens[r.rid] = done
+        if len(done) < g:
+            raise RuntimeError(f"request {r.rid}: {g} tokens generated, "
+                               f"{len(done)} of them recorded")
+        if kv.tokens_of(r.rid) != r.context_len:
+            raise RuntimeError(
+                f"request {r.rid}: {kv.tokens_of(r.rid)} tokens allocated "
+                f"for a prefill over {r.context_len}")
+        if not g:
+            return prompt
+        return np.concatenate([prompt, np.asarray(done, dtype=np.int32)])
+
+    def _prompt_inputs(self, r, kv):
+        context = self._context(r, kv)
         row = self._take_row(r.rid)
-        toks = torch.from_numpy(prompt[None]).to(self.device)
-        pos = torch.arange(len(prompt), device=self.device)[None]
+        toks = torch.from_numpy(context[None]).to(self.device)
+        pos = torch.arange(len(context), device=self.device)[None]
         table = ring_table(kv.blocks_of(r.rid), self.cfg.sliding_window,
                            self.serve.page_size)
         return (toks, pos, self._ints([table]),
@@ -528,9 +574,10 @@ class KernelExecutor(Executor):
             return tf.greedy_sample(logits, vocab)[:, 0]
 
         out, wall = self._launch("prefill", run, rids=[r.rid],
-                                 prefill_tokens=r.prompt_len, decode_bs=0,
+                                 prefill_tokens=r.context_len,
+                                 resumed=r.tokens_generated, decode_bs=0,
                                  f_decode=None, arm_f_decode=None)
-        self.tokens[r.rid] = out
+        self.tokens[r.rid] += out
         return wall
 
     def _decode(self, decode, arm_f, kv) -> float:
@@ -540,7 +587,8 @@ class KernelExecutor(Executor):
 
         out, wall = self._launch("decode", run,
                                  rids=[r.rid for r in decode],
-                                 prefill_tokens=0, decode_bs=len(decode),
+                                 prefill_tokens=0, resumed=0,
+                                 decode_bs=len(decode),
                                  f_decode=None, arm_f_decode=arm_f)
         for r, t in zip(decode, out):
             self.tokens[r.rid].append(t)
@@ -563,10 +611,11 @@ class KernelExecutor(Executor):
 
         out, wall = self._launch("fused", run,
                                  rids=[r_p.rid] + [r.rid for r in decode],
-                                 prefill_tokens=r_p.prompt_len,
+                                 prefill_tokens=r_p.context_len,
+                                 resumed=r_p.tokens_generated,
                                  decode_bs=len(decode), f_decode=f,
                                  arm_f_decode=arm_f)
-        self.tokens[r_p.rid] = out[:1]
+        self.tokens[r_p.rid] += out[:1]
         for r, t in zip(decode, out[1:]):
             self.tokens[r.rid].append(t)
         return wall

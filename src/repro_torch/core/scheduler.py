@@ -210,9 +210,20 @@ class Scheduler:
     token_queues: Tuple[str, ...] = ()          # full prompt_len pending
     partial_token_queues: Tuple[str, ...] = ()  # prompt minus chunked-done
     unalloc_queues: Tuple[str, ...] = ()        # not yet holding KV pages
+    # the port's addition: set by the engine when its executor prefills a
+    # resumed request's whole context again (``KernelExecutor``), so such
+    # a request is admitted and allocated for its ``context_len``; the
+    # perfmodel prices the prompt alone, as the reference does
+    reprefill_context: bool = False
 
     def schedule(self, view: SchedView) -> StepPlan:
         raise NotImplementedError
+
+    def kv_tokens(self, r: Request) -> int:
+        """The tokens whose KV the prefill of ``r`` writes: its prompt, or
+        under ``reprefill_context`` its context (prompt and generated
+        tokens; the prompt alone for a request that generated none)."""
+        return r.context_len if self.reprefill_context else r.prompt_len
 
     # -- engine construction hooks ------------------------------------------
     def pool_blocks(self, cfg, serve, hw: HardwareSpec) -> Dict[str, int]:
@@ -261,16 +272,18 @@ class Scheduler:
 
     @staticmethod
     def _pages_needed(r: Request, kv: KVCacheManager, page_size: int,
-                      claimed: set) -> int:
+                      claimed: set, tokens: Optional[int] = None) -> int:
         """Pages admitting ``r`` would newly claim, net of any parked
         session prefix it can adopt.  ``claimed`` tracks sessions whose
         prefix an earlier admission in the SAME plan already adopts —
         two queued turns of one session must not both count the hit.
         Reduces to ``kv_pages_for(prompt_len)`` for sessionless
-        requests."""
+        requests.  ``tokens`` (the port's): what the allocation holds,
+        default ``prompt_len`` (``kv_tokens``)."""
+        tokens = r.prompt_len if tokens is None else tokens
         if r.session_id is None or r.session_id in claimed:
-            return kv_pages_for(r.prompt_len, page_size)
-        need = kv.pages_needed(r.prompt_len, r.session_id,
+            return kv_pages_for(tokens, page_size)
+        need = kv.pages_needed(tokens, r.session_id,
                                r.cached_prefix_len)
         claimed.add(r.session_id)
         return need
@@ -319,10 +332,11 @@ class RapidScheduler(Scheduler):
             free = view.kv.available_blocks
             claimed = set()     # sessions whose parked prefix this plan
             for r in view.queues["waiting_kv"]:   # already hands out
-                if not self._fits_pool(r.prompt_len, view.kv, ps):
+                n = self.kv_tokens(r)
+                if not self._fits_pool(n, view.kv, ps):
                     plan.rejects.append((r, "waiting_kv"))
                     continue
-                need = self._pages_needed(r, view.kv, ps, claimed)
+                need = self._pages_needed(r, view.kv, ps, claimed, n)
                 if need > free:
                     break
                 free -= need

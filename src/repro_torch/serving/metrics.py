@@ -12,10 +12,6 @@ Serving API v2: ``StreamMetrics`` assembles the same ``RequestRecord``s
 incrementally from the typed engine/cluster event stream
 (core/events.py) — the replacement for scraping ``records()`` after a
 blocking ``run()``.
-
-A copy of ``repro/serving/metrics.py`` without the cluster aggregation
-(``per_class_summaries``, ``fleet_summarize``), which the port does not
-run yet.
 """
 from __future__ import annotations
 
@@ -219,6 +215,24 @@ def summarize(records: List[RequestRecord], slo: SLOConfig,
     }
 
 
+def per_class_summaries(records: List[RequestRecord], slo: SLOConfig,
+                        span_s: float,
+                        class_slos: Optional[Dict[str, SLOConfig]] = None
+                        ) -> Dict[str, Dict[str, float]]:
+    """One summary per SLO class present in ``records``, each evaluated
+    against that class's OWN SLO (``class_slos`` defaults to
+    ``serving.workloads.class_slos()``; the cluster-wide ``slo`` covers
+    classes without an entry).  A single-class trace yields one entry."""
+    if class_slos is None:
+        from repro_torch.serving.workloads import class_slos as _defaults
+        class_slos = _defaults()
+    by_class: Dict[str, List[RequestRecord]] = {}
+    for rec in records:
+        by_class.setdefault(rec.slo_class, []).append(rec)
+    return {name: summarize(recs, class_slos.get(name, slo), span_s)
+            for name, recs in sorted(by_class.items())}
+
+
 def rejections_by_reason(records: List[RequestRecord]) -> Dict[str, int]:
     """Rejection counts keyed by ``RejectedEvent.reason`` vocabulary."""
     out: Dict[str, int] = {}
@@ -227,3 +241,49 @@ def rejections_by_reason(records: List[RequestRecord]) -> Dict[str, int]:
             reason = rec.reject_reason or "never_fits"
             out[reason] = out.get(reason, 0) + 1
     return out
+
+
+def fleet_summarize(per_replica: Dict[str, List[RequestRecord]],
+                    slo: SLOConfig, span_s: float,
+                    fleet_records: Optional[List[RequestRecord]] = None,
+                    class_slos: Optional[Dict[str, SLOConfig]] = None,
+                    loop_stats=None) -> Dict[str, object]:
+    """Cluster-level aggregation: one fleet-wide summary over the union of
+    all replicas' records, plus the per-replica summaries (every replica
+    shares the cluster's virtual clock, so one span normalizes all).
+
+    ``fleet_records`` overrides the fleet-wide record set — the stream-
+    consuming cluster passes its ``StreamMetrics.records``, which also
+    carry cluster-side admission rejections that never reached a
+    replica.
+
+    The result additionally carries ``per_class`` (one summary per SLO
+    class present, each judged against its own SLO from ``class_slos`` /
+    ``serving.workloads``) and, inside ``fleet``,
+    ``rejections_by_reason`` (never_fits / kv_headroom / class_shed /
+    worker_lost).
+
+    ``loop_stats`` (a ``serving.sim.LoopStats`` or plain dict) surfaces
+    event-loop health under ``fleet["loop"]`` — ``dispatched``,
+    ``clamped`` (past-due ``EventLoop.at()`` schedules snapped to
+    ``now``: a persistent non-zero rate means some component plans
+    against a stale clock) and ``peak_heap``."""
+    union: List[RequestRecord] = [r for recs in per_replica.values()
+                                  for r in recs]
+    fleet_recs = union if fleet_records is None else fleet_records
+    fleet = summarize(fleet_recs, slo, span_s)
+    fleet["replicas"] = len(per_replica)
+    counts = {name: len(recs) for name, recs in per_replica.items()}
+    fleet["min_replica_share"] = (min(counts.values()) / max(1, len(union))
+                                  if counts and union else 0.0)
+    fleet["rejections_by_reason"] = rejections_by_reason(fleet_recs)
+    if loop_stats is not None:
+        fleet["loop"] = loop_stats.as_dict() \
+            if hasattr(loop_stats, "as_dict") else dict(loop_stats)
+    return {
+        "fleet": fleet,
+        "per_replica": {name: summarize(recs, slo, span_s)
+                        for name, recs in per_replica.items()},
+        "per_class": per_class_summaries(fleet_recs, slo, span_s,
+                                         class_slos=class_slos),
+    }

@@ -114,6 +114,36 @@ def test_engine_tokens_match_reference(arch, granite, monkeypatch):
         [r.max_new for r in reqs]
 
 
+def test_kv_pressure_preemption_gives_the_reference_tokens(granite):
+    """On the smallest pool the scheduler sizes (64 blocks, 1,024 tokens)
+    four requests outgrow it while they decode: the engine preempts, and
+    a victim comes back after a finish, admitted and allocated for its
+    whole context, prefilled again over its prompt and generated tokens,
+    and goes on to the reference's greedy tokens."""
+    model, params, jcfg = granite
+    hw = dataclasses.replace(HW, hbm_bytes=1 << 20)
+    reqs = _requests(model.cfg, [(200, 80), (190, 75), (210, 85),
+                                 (180, 70)])
+    result = serve_mod.serve_engine(model, reqs, serve_mod.serve_config(),
+                                    hw=hw)
+    assert result["pool_blocks"] == 64
+    s = serve_mod.summarize(result)
+    assert s["preemptions"] >= 1 and s["rejected"] == 0
+    assert s["tokens_met"] and s["pool_reclaimed"] and \
+        s["state_rows_reclaimed"]
+    resumed = [e for e in result["log"] if e["resumed"]]
+    assert resumed
+    for e in resumed:
+        r = next(x for x in reqs if x.rid == e["rids"][0])
+        assert e["prefill_tokens"] == len(r.prompt) + e["resumed"]
+    step = jax.jit(functools.partial(jax_tf.decode_forward, cfg=jcfg, tp=1))
+    max_seq = max(len(r.prompt) + r.max_new for r in reqs)
+    for r in reqs:
+        want = _reference_greedy(params, jcfg, step, r.prompt, r.max_new,
+                                 max_seq)
+        assert result["tokens"][r.rid] == want, r.rid
+
+
 def test_pool_holds_every_position_read_at_finish(granite):
     """When a request finishes, the blocks the engine gave it hold the K/V
     of every position a decode step read (prompt and generated tokens but
@@ -195,7 +225,7 @@ def test_arm_f_decode_reaches_the_fused_step(arm_f, passed, granite,
 def _bound(model, prompts):
     serve = serve_mod.serve_config()
     ex = KernelExecutor(model, prompts=prompts, serve=serve, device="cpu",
-                        hw=HW)
+                        hw=HW, state_rows=len(prompts))
     eng = RapidEngine(model.cfg, serve, HW, executor=ex)
     ex.bind(eng)
     return ex, eng
@@ -208,7 +238,12 @@ def _plan_for(case, eng):
         r.cached_prefix_len = 3
         return StepPlan(prefill=PrefillLaunch([r], "waiting_prefill"))
     if case == "preempted_reprefill":
+        # a preempted request resumed from a gateway KV checkpoint: its
+        # restored context is a cached prefix (the plain re-prefill runs,
+        # tests/test_torch_gateway.py)
         r.preemptions = 1
+        r.tokens_generated = 2
+        r.cached_prefix_len = 6
         return StepPlan(prefill=PrefillLaunch([r], "waiting_prefill"))
     return StepPlan(hybrid=HybridLaunch([(r, 8)]))
 

@@ -102,7 +102,7 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "    m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "    m.startswith('repro.'))\n"
-        "assert len(mods) >= 42, mods\n"
+        "assert len(mods) >= 50, mods\n"
         "assert {'repro_torch.kernels.ssm_scan', 'repro_torch.models.mamba',\n"
         "        'repro_torch.models.moe', 'repro_torch.models.decode_graph',\n"
         "        'repro_torch.serving.traces',\n"
@@ -111,7 +111,12 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.configs.mixtral_8x22b',\n"
         "        'repro_torch.core.executor', 'repro_torch.core.engines',\n"
         "        'repro_torch.perfmodel.interference',\n"
-        "        'repro_torch.serving.metrics'} <= set(engine + mods)\n"
+        "        'repro_torch.serving.metrics',\n"
+        "        'repro_torch.serving.clock', 'repro_torch.serving.worker',\n"
+        "        'repro_torch.serving.gateway', 'repro_torch.serving.http',\n"
+        "        'repro_torch.serving.cluster', 'repro_torch.serving.admission',\n"
+        "        'repro_torch.serving.faults',\n"
+        "        'repro_torch.serving.workloads'} <= set(engine + mods)\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
