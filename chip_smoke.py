@@ -68,8 +68,10 @@ the result line:
                ring tables, one sequence wrapped; unified_pd with both),
                with two more planted faults (the window ignored; a decode's
                K/V written at seq_lens, not seq_lens % W); one MoE layer
-               timed at the decode batch and at a prefill against its
-               bound; then phases 4 and 6 on the smoke's 8 requests plus a
+               timed at the decode batch and at prefills of the first
+               prompt and of 2048 tokens against its bound, with the
+               memory one call takes; then phases 4 and 6 on the smoke's
+               8 requests plus a
                6000-token prompt (the window binds) and a 4090-token one
                (its ring wraps during decode), the kernel-vs-plain logits
                also on the 6000-token prompt and a decode of it (the plain
@@ -110,7 +112,23 @@ the result line:
                between heartbeats, the first 64 tokens of each stream beside
                serve_real's, and the paused request's tokens beside an
                uninterrupted run of it.
-In phases 4, 5, 7 and 8 the decode steps run as CUDA graphs, one per
+ 10. archs   — after phase 8: the reference's other token-frontend
+               attention models, each at every published width with random
+               seeded bf16 weights, one after the other: MiniCPM-2B (MHA,
+               G = 1, D = 64, tied embeddings), Qwen2.5-14B (qkv bias,
+               G = 5), StarCoder2-3B (qkv bias, GELU FFN, G = 12) and
+               Qwen3-MoE-235B-A22B cut to 13 layers (the config's one-card
+               cut; 128 experts top-8, G = 16).  For each: the three
+               attention kernels at its serving shapes as in phase 3, where
+               G > 8 with two more planted faults (the heads past the 8th
+               of each group never written, or computed from the wrong kv
+               head's K/V); Qwen3-MoE's MoE layer timed as in phase 7;
+               then phase 4 on the smoke's 8 requests (Qwen3-MoE's logits
+               check on held routing as Mixtral's, under 5 % flips), the
+               graph check and decode profile, and phase 6's engine path.
+               The result line's kernel records carry each model's as
+               ``at_g1``, ``at_g5``, ``at_g12`` and ``at_g16``.
+In phases 4, 5, 7, 8 and 10 the decode steps run as CUDA graphs, one per
 (batch size, table width), captured at a shape's first step and replayed
 after it (``models/decode_graph.py``).  For each model the graph check
 compares, at the decode batch, three replayed steps (one crossing a page
@@ -177,11 +195,13 @@ TOL_F32, TOL_BF16, TOL_FUSED, TOL_LOGITS = 3e-5, 3e-2, 1e-6, 3e-2
 # the Jamba period's kernel path against its plain path in float32: the
 # two differ only in summation order, far below one bf16 ulp (3.9e-3)
 TOL_LOGITS_F32 = 1e-3
-# Mixtral's kernel-vs-plain logits hold the plain path to the kernel
-# path's expert choices (``routing``).  The choices the plain path would
-# have made itself may differ from them only at near-ties, in at most this
-# share of the routed (token, choice) pairs; a fault in the attention
-# kernels moves the router's inputs, and the choices with them, by more.
+# An MoE model's kernel-vs-plain logits hold the plain path to the kernel
+# path's expert choices (``routing``).  The experts the plain path would
+# have chosen itself may differ from them only at near-ties, in at most
+# this share of the routed (token, choice) pairs (a pair flips when its
+# expert is not among the plain path's own top k); a fault in the
+# attention kernels moves the router's inputs, and the choices with them,
+# by more.
 TOL_FLIP_SHARE = 0.05
 # bf16, per output row: max|kernel - plain| <= TOL_ROW * max|plain row|.
 # The plain version computes in float32 from the bf16 inputs and rounds
@@ -503,7 +523,28 @@ def decode_faults(q, k_pages, v_pages, tabs, lens):
     if bool(long.any()):
         faults["split_0_skipped"] = ref.paged_attention(q, k_pages, v_pages,
                                                         tabs3, lens3)
-    return faults
+    return {**faults, **head_group_faults(q, k_pages, v_pages, tabs, lens)}
+
+
+def head_group_faults(q, k_pages, v_pages, tabs, lens):
+    """Where G = Hq/Hkv > 8, the plain decode as a tile that held only 8
+    heads of a group would compute it: the heads past the 8th of each group
+    never written (zero), or computed from the next kv head's K/V (the
+    pages with their kv heads rolled by one).  None for G <= 8."""
+    B, Hq, D = q.shape
+    Hkv = k_pages.shape[2]
+    G = Hq // Hkv
+    if G <= 8:
+        return {}
+    require(Hkv > 1, "the wrong-K/V fault needs two kv heads")
+    sound = ref.paged_attention(q, k_pages, v_pages, tabs, lens)
+    other = ref.paged_attention(q, k_pages.roll(1, dims=2),
+                                v_pages.roll(1, dims=2), tabs, lens)
+    unwritten, wrong = sound.clone(), sound.clone()
+    unwritten.view(B, Hkv, G, D)[:, :, 8:] = 0
+    wrong.view(B, Hkv, G, D)[:, :, 8:] = other.view(B, Hkv, G, D)[:, :, 8:]
+    return {"heads_past_8_unwritten": unwritten,
+            "heads_past_8_from_wrong_kv": wrong}
 
 
 def within_bf16(name, got, want, faults):
@@ -851,8 +892,12 @@ def routing(mode, log):
     ``mode`` "record", each MoE layer's choices (``moe.choose_experts``)
     are appended to ``log["choices"]``; with "replay", each call takes the
     next recorded choices, in the same order, with its own gates at them,
-    and counts in ``log["flips"]`` the (token, choice) pairs it would have
-    chosen otherwise.  A router's near-tie flips under any rounding, and
+    and counts in ``log["flips"]`` the (token, choice) pairs whose expert
+    it would not have chosen among its own top k, and in
+    ``log["order_flips"]`` those it would have put at another rank (a
+    swap of two chosen experts counts two there and none in ``flips``:
+    the same experts serve the token).  A router's near-tie flips under
+    any rounding, and
     one flipped choice moves a token's output by its gate times an
     expert's, far past the logits limit whichever side is right; with the
     choices held, the logits differ by the attention kernels alone.  A
@@ -866,7 +911,10 @@ def routing(mode, log):
 
     def replay(probs, k):
         experts = log["choices"].pop(0)
-        log["flips"] += int((choose(probs, k)[1] != experts).sum())
+        mine = choose(probs, k)[1]
+        chosen = (mine[:, :, None] == experts[:, None, :]).any(-1)
+        log["flips"] += int((~chosen).sum())
+        log["order_flips"] += int((mine != experts).sum())
         log["pairs"] += experts.numel()
         return probs.gather(1, experts), experts
 
@@ -888,7 +936,7 @@ def first_steps_kernel_vs_plain(model, reqs, page, pair=(0, 1)):
     routing flips."""
     cfg = model.cfg
     window = cfg.sliding_window
-    log = {"choices": [], "flips": 0, "pairs": 0}
+    log = {"choices": [], "flips": 0, "order_flips": 0, "pairs": 0}
     r0, r1 = reqs[pair[0]], reqs[pair[1]]
     n0 = len(r0.prompt)
     blocks = len(attn_mod.ring_table(range(kv_pages_for(n0 + 1, page)),
@@ -922,7 +970,8 @@ def first_steps_kernel_vs_plain(model, reqs, page, pair=(0, 1)):
     return {"first_prefill": rel_err(lk, lr),
             "fused_prefill": rel_err(outs["kernel"][0], outs["ref"][0]),
             "fused_decode": rel_err(outs["kernel"][1], outs["ref"][1])}, \
-        {"routing_flips": log["flips"], "routed_pairs": log["pairs"]}
+        {"routing_flips": log["flips"], "order_flips": log["order_flips"],
+         "routed_pairs": log["pairs"]}
 
 
 def logits_fault(model, prompt):
@@ -962,7 +1011,7 @@ def window_logits_fault(model, prompt):
     flips of the faulted run; a limit on kernel-vs-plain logits that this
     stays within could not see such a kernel."""
     cfg = model.cfg
-    log = {"choices": [], "flips": 0, "pairs": 0}
+    log = {"choices": [], "flips": 0, "order_flips": 0, "pairs": 0}
     pos = torch.arange(len(prompt), device=DEVICE)[None]
     toks = torch.tensor(prompt[None], device=DEVICE)
     with routing("record", log):
@@ -985,6 +1034,7 @@ def window_logits_fault(model, prompt):
             set(windows) == {cfg.sliding_window},
             f"the planted fault reached windows {windows}")
     return rel_err(lk, faulted), {"routing_flips": log["flips"],
+                                  "order_flips": log["order_flips"],
                                   "routed_pairs": log["pairs"]}
 
 
@@ -1337,6 +1387,9 @@ def profile_serving(model, cfg):
 # phase 7: Mixtral-8x7B — the MoE FFN and the sliding-window ring cache
 # ---------------------------------------------------------------------------
 
+# the longest prompt of the smoke's traffic: an MoE layer's capacity
+# buffers are also recorded at it
+LONGEST_PROMPT = SERVE["prompts"][1]
 # (prompt tokens, new tokens) of the two fixed requests after the smoke's
 # 8: a prefill past the window (the window binds, and only the last W
 # tokens are written), and a prompt whose ring wraps during decode at
@@ -1480,20 +1533,29 @@ def device_ops(fn):
 
 def moe_layer_record(gen, model, reqs):
     """Layer 0's MoE FFN at the decode batch (4 tokens, dropless) and at
-    the first prompt's prefill (the inference capacity policy), on
-    unit-variance bf16 inputs (what rmsnorm hands it): its time after an
-    L2 flush, its bound (expert bytes touched at 3.35 TB/s; the kept
-    pairs' operations at 989 TFLOP/s), the capacity buffers' padding
-    factor (rows computed over pairs kept) and the device operations of
-    one call."""
+    the first prompt's prefill and a ``LONGEST_PROMPT``-token one (the
+    inference capacity policy), on unit-variance bf16 inputs
+    (what rmsnorm hands it): its time after an L2 flush, its bound (expert
+    bytes touched at 3.35 TB/s; the kept pairs' operations at 989
+    TFLOP/s), the capacity buffers' padding factor (rows computed over
+    pairs kept), the device operations of one call and the memory one
+    call takes above its input (capacity buffers and products)."""
     cfg = model.cfg
     m, ffn = cfg.moe, model.layers[0].ffn
     d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
     out = {}
-    for name, T, policy in (("decode", SERVE["slots"], {"dropless": True}),
-                            ("prefill", len(reqs[0].prompt),
-                             {"inference": True})):
+    for name, T, policy in (
+            ("decode", SERVE["slots"], {"dropless": True}),
+            ("prefill", len(reqs[0].prompt), {"inference": True}),
+            (f"prefill_{LONGEST_PROMPT}", LONGEST_PROMPT,
+             {"inference": True})):
         x = randn(gen, 1, T, d, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        moe_mod.moe_ffn(ffn, cfg, x, **policy)
+        torch.cuda.synchronize()
+        call_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         _, rows, (g, N, C) = moe_mod.route(ffn, cfg, x, **policy)
         kept = rows < E * N * C
         pairs = int(kept.sum())
@@ -1509,7 +1571,8 @@ def moe_layer_record(gen, model, reqs):
             "experts_touched": touched, "ms": ms, "bound_ms": bound,
             "bound_by": by, "bound_share": bound / ms,
             "device_ops": device_ops(
-                lambda: moe_mod.moe_ffn(ffn, cfg, x, **policy))}
+                lambda: moe_mod.moe_ffn(ffn, cfg, x, **policy)),
+            "call_gb": call_gb}
     return out
 
 
@@ -1894,6 +1957,59 @@ def llama_phase(gen):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the reference's other token-frontend attention models
+# ---------------------------------------------------------------------------
+
+# (arch, the key of its kernel records in the result line): G = Hq / Hkv
+# query heads per kv head, 1 (MHA, D = 64), 5, 12 and 16 (the decode
+# tile's 16-head bucket)
+PHASE_10 = (("minicpm-2b", "at_g1"), ("qwen2.5-14b", "at_g5"),
+            ("starcoder2-3b", "at_g12"), ("qwen3-moe-235b-a22b", "at_g16"))
+
+
+def arch_phase(gen, arch):
+    """Phase 10 for one model at every published width (Qwen3-MoE at its
+    one-card cut): the attention kernels at its serving shapes (with the
+    planted head-group faults where G > 8); its model through
+    ``serve_real`` (with the held-routing logits check for an MoE model),
+    the graph check and the decode profile, then the engine path.
+    Returns (kernel records at its shapes, launch counts by path)."""
+    cfg = get_one_card_config(arch)
+    reqs = serving_requests(cfg)
+    recs = check_main_path_shapes(gen, main_path_shapes(cfg, reqs))
+    say("kernels", phase="main_path_shapes", config=cfg.name,
+        G=cfg.num_heads // cfg.num_kv_heads, D=cfg.head_dim,
+        tolerance_bf16=TOL_BF16, tolerance_bf16_row=TOL_ROW, **recs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = init_full(cfg)
+    if cfg.moe is not None:
+        say("moe", config=cfg.name, layer=0,
+            **moe_layer_record(gen, model, reqs))
+    launches = {}
+    launches[cfg.name], summary, tokens = serve_full(model, reqs)
+    graph_phase(model, reqs, gen)
+    launches[f"{cfg.name}-engine"] = engine_full(model, (summary, tokens),
+                                                 reqs)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
+def archs_phase(gen):
+    """Phase 10: every model of ``PHASE_10``, one after the other, each
+    freed before the next loads.  Returns {record key: kernel records} and
+    the launch counts by path."""
+    recs, launches = {}, {}
+    for arch, key in PHASE_10:
+        with timed(arch):
+            recs[key], by_path = arch_phase(gen, arch)
+        launches.update(by_path)
+    return recs, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2293,6 +2409,9 @@ def main():
         launches.update(mixtral_launches)
         with timed("llama3-70b"):
             launches.update(llama_phase(gen))
+        with timed("archs"):
+            archs_attn, archs_launches = archs_phase(gen)
+        launches.update(archs_launches)
         say("time", phase="total", seconds=time.perf_counter() - t_start)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -2300,8 +2419,8 @@ def main():
 
     # each kernel's launches are those of the first serving run whose path
     # runs it: granite-8b for attention, the Jamba period for ssm_scan;
-    # every serving run's own counts (Mixtral's too) are under
-    # launches_by_path
+    # every serving run's own counts (Mixtral's, LLaMA's and phase 10's
+    # too) are under launches_by_path
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:113"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -2333,14 +2452,15 @@ def main():
             if k in r:
                 kernels[-1][k] = r[k]
         for key, at in (("at_jamba_shapes", jamba_attn),
-                        ("at_mixtral_shapes", mixtral_attn)):
+                        ("at_mixtral_shapes", mixtral_attn),
+                        *archs_attn.items()):
             if name in at:
                 kernels[-1][key] = {
                     k: at[name][k] for k in (
                         "max_abs_err", "max_row_rel_err", "fault_row_rel_err",
                         "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms", "library", "shape", "splits",
-                        "persistent") if k in at[name]}
+                        "ctas", "persistent") if k in at[name]}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@
 //   paged_tile    - the G query heads of one (sequence, kv-head) against
 //                   one split of SPLIT keys of the sequence's paged KV,
 //                   in chunks of BK keys gathered through its block-table
-//                   row; the last split to finish merges all of them.
+//                   row; the last split to finish merges all of them.  It
+//                   is compiled for a head bucket GB (8 or 16, the G it
+//                   holds in registers), chosen from G at launch.
 // All keep the reference's masking convention: masked scores are the
 // finite NEG_INF = -1e30 and the row sum is clamped to 1e-30, so a fully
 // masked row comes out finite.  Every product accumulates in float32.  The
@@ -33,7 +35,7 @@ constexpr int BQ = 64;        // query rows of a prefill tile
 constexpr int BK = 64;        // keys per inner step (k-block / decode chunk)
 static_assert(BQ == 64 && BK == 64 && THREADS == 256,
               "thread maps below assume 16x16 threads over 64x64 tiles");
-constexpr int MAX_G = 8;      // query heads of a decode tile (Hq / Hkv)
+constexpr int MAX_G = 16;     // query heads of a decode tile (Hq / Hkv)
 constexpr int SPLIT = 256;    // keys of one decode CTA
 
 enum TileKind { PREFILL = 0, DECODE = 1 };
@@ -44,6 +46,25 @@ enum TileKind { PREFILL = 0, DECODE = 1 };
 // float32: one (its CUDA-core prefill tile takes 115.5 KB of shared memory).
 template <typename T> struct MinCtas { static constexpr int value = 1; };
 template <> struct MinCtas<__nv_bfloat16> { static constexpr int value = 2; };
+
+// The same for a kernel that runs the decode tile of head bucket GB.  The
+// 16-head bucket holds twice the per-head state of the 8-head one (m, l
+// and D/32 accumulators a lane for every head: 96 registers at D = 128),
+// more than 128 registers leave room for, so its kernels are compiled for
+// one CTA an SM (255 registers) and the 8-head bucket's stay as they were.
+template <typename T, int GB> struct MinCtasG {
+  static constexpr int value = GB > 8 ? 1 : MinCtas<T>::value;
+};
+
+// Calls fn(std::integral_constant<int, GB>) with the head bucket of G query
+// heads per kv head: 8 for G <= 8, 16 for G <= MAX_G.  A G past MAX_G is
+// refused (the wrappers refuse it first).
+template <typename F>
+__host__ int with_head_bucket(int G, F fn) {
+  if (G >= 1 && G <= 8) return fn(std::integral_constant<int, 8>{});
+  if (G > 8 && G <= MAX_G) return fn(std::integral_constant<int, 16>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // The thread's index in its CTA, for the tiles.  The unified kernel runs
 // its tiles in a loop, and the compiler hoists what a tile computes from
@@ -590,7 +611,7 @@ __device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// Decode attention of the G = Hq/Hkv (<= MAX_G) query heads that share kv
+// Decode attention of the G = Hq/Hkv (<= GB) query heads that share kv
 // head kvh of sequence b, over split `split`: keys [split*SPLIT,
 // split*SPLIT+SPLIT) of its first lens[b] keys.  Each K/V row is read from
 // device memory once for all G heads, and stays in the input dtype in
@@ -619,9 +640,15 @@ __device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* out) {
 // the non-empty splits in split order: o = sum_s acc_s w_s with w_s =
 // 2^(m_s - M) / sum_s l_s 2^(m_s - M), M = max_s m_s.  Every sum runs in a
 // fixed order, so the output does not depend on which CTA finishes last.
-template <typename T, int D>
+//
+// GB is the head bucket: the per-head state and the head loops are GB
+// long, unrolled, and heads g >= G skip their work.  Every head of the
+// tile, in either bucket, reads the one copy of each K/V row the warp
+// staged, so a row still leaves device memory once for all G heads.
+template <typename T, int D, int GB>
 __device__ void paged_tile(const DecodeArgs& a, int b, int kvh, int split,
                            void* smem_raw) {
+  static_assert(GB == 8 || GB == 16, "head buckets of 8 and 16");
   constexpr int VEC = 16 / sizeof(T), NCH = D / VEC;
   constexpr int KPW = paged_kpw(D, sizeof(T)), LPK = 32 / KPW;
   constexpr int CPL = NCH / LPK;             // chunks a lane multiplies
@@ -675,9 +702,9 @@ __device__ void paged_tile(const DecodeArgs& a, int b, int kvh, int split,
       }
     };
 
-    float m[MAX_G], l[MAX_G], acc[MAX_G][DPL];
+    float m[GB], l[GB], acc[GB][DPL];
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
+    for (int g = 0; g < GB; ++g) {
       m[g] = NEG_INF;
       l[g] = 0.f;
 #pragma unroll
@@ -703,9 +730,9 @@ __device__ void paged_tile(const DecodeArgs& a, int b, int kvh, int split,
       const T* V = K + STAGE;
       const bool valid = j * KPW + kk < nkeys;
 
-      float sc[MAX_G];
+      float sc[GB];
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) sc[g] = 0.f;
+      for (int g = 0; g < GB; ++g) sc[g] = 0.f;
 #pragma unroll
       for (int i = 0; i < CPL; ++i) {
         const int ch = ((i + kk) % CPL) * LPK + qq;
@@ -713,7 +740,7 @@ __device__ void paged_tile(const DecodeArgs& a, int b, int kvh, int split,
         unpack16<T>(*reinterpret_cast<const uint4*>(K + kk * D + ch * VEC),
                     kf);
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
+        for (int g = 0; g < GB; ++g) {
           if (g < G) {
             float qf[VEC];
 #pragma unroll
@@ -725,7 +752,7 @@ __device__ void paged_tile(const DecodeArgs& a, int b, int kvh, int split,
         }
       }
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
+      for (int g = 0; g < GB; ++g) {
         if (g < G) {
           float x = sc[g];
 #pragma unroll
@@ -759,7 +786,7 @@ __device__ void paged_tile(const DecodeArgs& a, int b, int kvh, int split,
           for (int c = 0; c < 4; ++c)
             load_f32<DPL>(V + (k4 + c) * D + lane * DPL, vf[c]);
 #pragma unroll
-          for (int g = 0; g < MAX_G; ++g) {
+          for (int g = 0; g < GB; ++g) {
             if (g < G) {
               float pk[4];
               load_f32<4>(pw + (warp * G + g) * KPW + k4, pk);
@@ -782,7 +809,7 @@ __device__ void paged_tile(const DecodeArgs& a, int b, int kvh, int split,
     float* wm = wacc + WARPS * G * D;             // [WARPS][G]
     float* wl = wm + WARPS * G;
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
+    for (int g = 0; g < GB; ++g) {
       if (g < G) {
         if (lane * DPL < D)
 #pragma unroll

@@ -26,22 +26,29 @@
 // and writes o.  One launch, no host sync.  The counters must not be
 // shared by launches that run at the same time: the wrapper keeps one
 // buffer per device and stream.
+//
+// Any G up to MAX_G = 16: the kernel is instanced per head bucket (8 for
+// G <= 8, 16 above; attn_tiles.cuh with_head_bucket), each CTA still
+// holding every head of its kv head, so a wider G never re-reads K/V.
 #include "attn_tiles.cuh"
 
-template <typename T, int D>
-__global__ void __launch_bounds__(attn::THREADS, attn::MinCtas<T>::value)
+template <typename T, int D, int GB,
+          int CTAS = attn::MinCtasG<T, GB>::value>
+__global__ void __launch_bounds__(attn::THREADS, CTAS)
     paged_kernel(attn::DecodeArgs a) {
   extern __shared__ float smem[];
-  attn::paged_tile<T, D>(a, blockIdx.z, blockIdx.y, blockIdx.x, smem);
+  attn::paged_tile<T, D, GB>(a, blockIdx.z, blockIdx.y, blockIdx.x, smem);
 }
 
 template <typename T, int D>
 static int run(const attn::DecodeArgs& a, int B, cudaStream_t stream) {
+  const int G = a.Hq / a.Hkv;
   const size_t smem =
-      attn::paged_smem_bytes(D, a.Hq / a.Hkv, static_cast<int>(sizeof(T)),
-                             a.splits);
-  return attn::launch(paged_kernel<T, D>, dim3(a.splits, a.Hkv, B), smem,
-                      stream, a);
+      attn::paged_smem_bytes(D, G, static_cast<int>(sizeof(T)), a.splits);
+  return attn::with_head_bucket(G, [&](auto gb) {
+    return attn::launch(paged_kernel<T, D, decltype(gb)::value>,
+                        dim3(a.splits, a.Hkv, B), smem, stream, a);
+  });
 }
 
 // q (B,Hq,D) and o (B,Hq,D) dense; k/v pages (N,page,Hkv,D) dense;

@@ -40,7 +40,11 @@
 // of a decode row being kvh * splits + split, with the same split count
 // and merge.  So the outputs equal the standalone kernels' bit for bit in
 // both dtypes, whatever f_decode is.  Both kinds share one block size and
-// one dynamic shared-memory size, the larger of the two tiles' needs.
+// one dynamic shared-memory size, the larger of the two tiles' needs.  As
+// paged_attention.cu, the kernel is instanced per decode head bucket (G <=
+// 8 or G <= 16); the 16-head instance runs one CTA an SM in bf16
+// (attn_tiles.cuh MinCtasG), so its grid, from the occupancy calculator,
+// is one CTA an SM and f_decode's share of the SMs keeps its meaning.
 //
 // An optional trace (8 int64 values; the serving path passes
 // null) records, from %globaltimer, the first CTA's start, the end of the
@@ -99,8 +103,9 @@ __device__ __noinline__ int between_tiles(Queues qs, int prev, void* smem) {
   return -1;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(attn::THREADS, attn::MinCtas<T>::value)
+template <typename T, int D, int GB,
+          int CTAS = attn::MinCtasG<T, GB>::value>
+__global__ void __launch_bounds__(attn::THREADS, CTAS)
     unified_kernel(Queues qs, attn::PrefillArgs p, attn::DecodeArgs d) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int next;
@@ -123,8 +128,8 @@ __global__ void __launch_bounds__(attn::THREADS, attn::MinCtas<T>::value)
     if (row[0] == attn::PREFILL)
       attn::prefill_tile<T, D>(p, row[1], row[2], row[4], smem);
     else
-      attn::paged_tile<T, D>(d, row[5], row[6] / d.splits,
-                             row[6] % d.splits, smem);
+      attn::paged_tile<T, D, GB>(d, row[5], row[6] / d.splits,
+                                 row[6] % d.splits, smem);
     // every thread is past the tile (the producer warpgroup and the
     // non-merging decode CTAs return early from it): its shared memory,
     // and `next`, are free for the next tile
@@ -152,19 +157,24 @@ static int smem_bytes(int G, int splits) {
 template <typename T, int D>
 static int run(const Queues& qs, int grid, const attn::PrefillArgs& p,
                const attn::DecodeArgs& d, cudaStream_t stream) {
-  return attn::launch(unified_kernel<T, D>, dim3(grid),
-                      smem_bytes<T, D>(d.Hq / d.Hkv, d.splits), stream, qs,
-                      p, d);
+  const int G = d.Hq / d.Hkv;
+  return attn::with_head_bucket(G, [&](auto gb) {
+    return attn::launch(unified_kernel<T, D, decltype(gb)::value>, dim3(grid),
+                        smem_bytes<T, D>(G, d.splits), stream, qs, p, d);
+  });
 }
 
 template <typename T, int D>
 static int ctas_per_sm(int G, int splits, int* out) {
   const int smem = smem_bytes<T, D>(G, splits);
-  cudaError_t e = cudaFuncSetAttribute(
-      unified_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, unified_kernel<T, D>, attn::THREADS, smem);
+  return attn::with_head_bucket(G, [&](auto gb) {
+    const auto kernel = unified_kernel<T, D, decltype(gb)::value>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, attn::THREADS, smem));
+  });
 }
 
 // The CTAs of the kernel that fit on one SM at once, for G query heads per

@@ -6,6 +6,10 @@ CUDA tensor it launches the kernel or raises.  The kernel reads only the
 first ``seq_lens[b]`` keys of sequence b through its block-table row, so
 padded table entries must be valid block ids (0) but are never read.
 
+A CTA holds all G = Hq / Hkv query heads of its kv head, any G up to
+``MAX_G`` (the kernel is built for G <= 8 and for G <= 16); the wrapper
+refuses a larger G before any launch.
+
 The kernel splits each sequence's keys over ``split_count`` CTAs of
 ``SPLIT_KEYS`` keys each; the count comes from the block table's width
 and the page size, shapes the host holds, so no launch waits on
@@ -24,7 +28,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 SPLIT_KEYS = 256   # keys of one decode CTA (attn_tiles.cuh SPLIT)
-MAX_G = 8          # query heads per kv head a decode CTA holds (MAX_G)
+MAX_G = 16         # query heads per kv head a decode CTA holds (MAX_G)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_I, _I] + [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]

@@ -154,7 +154,15 @@ def moe_ffn(p: MoEFFN, cfg, x, *, group_size: int = 256,
         .view(E, N * C, d)
     h = act(torch.bmm(expert_in, p.w_gate))
     h.mul_(torch.bmm(expert_in, p.w_in))      # in place: one buffer fewer
+    # each buffer is freed once read: at a prefill whose groups are small
+    # (g = 2 at a 1762-token prompt) the capacity buffers hold E / k times
+    # the kept pairs, up to 1.85 GB each at Qwen3-MoE's widths, beside
+    # the engine's KV pool
+    del expert_in
     out = torch.bmm(h, p.w_out).view(E * N * C, d)
-    out = torch.cat([out, out.new_zeros(1, d)])          # dropped pairs: 0
-    y = (gates.to(x.dtype)[..., None] * out[rows]).sum(1)
+    del h
+    kept = rows < E * N * C
+    picked = out[torch.where(kept, rows, 0)]
+    picked.masked_fill_(~kept[..., None], 0)             # dropped pairs: 0
+    y = (gates.to(x.dtype)[..., None] * picked).sum(1)
     return y.view(x.shape)

@@ -67,6 +67,7 @@ def test_flash_prefill_plain_matches_pallas(B, Hq, Hkv, S, D, bq, bk,
     (3, 8, 4, 64, 16, 6, 32),
     (1, 4, 1, 16, 8, 3, 8),
     (4, 2, 2, 32, 4, 5, 24),
+    (2, 10, 2, 32, 8, 4, 16),       # G = 5, Qwen2.5-14B's odd group
 ])
 def test_paged_attention_plain_matches_pallas(B, Hq, Hkv, D, page,
                                               max_pages, N):
@@ -109,6 +110,7 @@ def test_slot_schedule_matches_reference(f_decode):
     (2, 3, 4, 4, 64, 16, 8, 3, 12, 0.25, None),
     (1, 2, 8, 2, 96, 32, 16, 2, 8, 1.0, 48),
     (2, 1, 4, 2, 64, 32, 8, 2, 8, 0.1, None),
+    (1, 3, 10, 2, 64, 32, 8, 3, 12, 0.5, None),   # G = 5
 ])
 def test_unified_pd_plain_matches_pallas(Bp, Bd, Hq, Hkv, Sp, D, page, mp,
                                          N, f, win):
@@ -290,19 +292,50 @@ def test_split_counters_are_per_stream():
     assert counters(dev, 10, stream=12) is b
 
 
-def test_decode_check_rejects_query_groups_past_the_tile():
-    """A decode tile holds G = Hq/Hkv <= MAX_G query heads in registers;
+@pytest.mark.parametrize("Hq,Hkv", [(12, 1), (24, 2), (16, 1), (64, 4)])
+def test_decode_takes_query_groups_past_eight(Hq, Hkv):
+    """G = 12 (StarCoder2-3B) and G = 16 (Qwen3-MoE): the decode check
+    accepts the shape, and the plain paged_attention and unified_pd, which
+    the card holds the 16-head tile to, equal the reference's Pallas
+    kernels (interpret mode), which take any G."""
+    G = Hq // Hkv
+    assert G in (12, 16) and G <= MAX_G
+    rs = np.random.RandomState(7 + G)
+    Bd, D, page, mp, N = 3, 32, 8, 5, 24
+    q = _normal(rs, Bd, Hq, D)
+    kp, vp = _normal(rs, N, page, Hkv, D), _normal(rs, N, page, Hkv, D)
+    tabs = _tables(rs, Bd, N, mp)
+    lens = np.array([1, 17, mp * page], np.int32)
+    dec = tuple(map(torch.from_numpy, (q, kp, vp, tabs, lens)))
+    check_decode(*dec)
+    want = jax_paged(*map(jnp.asarray, (q, kp, vp, tabs, lens)),
+                     interpret=True)
+    np.testing.assert_allclose(paged_attention(*dec).numpy(),
+                               np.asarray(want), **TOL)
+    Sp = 40
+    pre = (_normal(rs, 1, Hq, Sp, D), _normal(rs, 1, Hkv, Sp, D),
+           _normal(rs, 1, Hkv, Sp, D))
+    wp, wd = jax_unified(*map(jnp.asarray, pre + (q, kp, vp, tabs, lens)),
+                         f_decode=0.5, block_q=32, block_k=32,
+                         interpret=True)
+    gp, gd = unified_pd(*map(torch.from_numpy, pre), *dec, f_decode=0.5)
+    np.testing.assert_allclose(gp.numpy(), np.asarray(wp), **TOL)
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), **TOL)
+
+
+def test_decode_check_refuses_query_groups_past_the_tile():
+    """The decode tile holds at most MAX_G = 16 query heads per kv head;
     the wrapper refuses more before any launch."""
-    assert MAX_G == 8
+    assert MAX_G == 16
 
     def pages(Hkv, D):
         return torch.zeros(4, 8, Hkv, D), torch.zeros(4, 8, Hkv, D)
 
     tabs = torch.zeros(1, 2, dtype=torch.int32)
     lens = torch.ones(1, dtype=torch.int32)
-    check_decode(torch.zeros(1, 8, 128), *pages(1, 128), tabs, lens)
-    check_decode(torch.zeros(1, 64, 16), *pages(8, 16), tabs, lens)
+    check_decode(torch.zeros(1, 16, 128), *pages(1, 128), tabs, lens)
+    check_decode(torch.zeros(1, 36, 64), *pages(36, 64), tabs, lens)
     with pytest.raises(ValueError, match="exceed"):
-        check_decode(torch.zeros(1, 16, 128), *pages(1, 128), tabs, lens)
+        check_decode(torch.zeros(1, 17, 128), *pages(1, 128), tabs, lens)
     with pytest.raises(ValueError, match="exceed"):
-        check_decode(torch.zeros(1, 32, 16), *pages(2, 16), tabs, lens)
+        check_decode(torch.zeros(1, 64, 16), *pages(2, 16), tabs, lens)
