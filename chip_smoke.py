@@ -128,6 +128,30 @@ the result line:
                graph check and decode profile, and phase 6's engine path.
                The result line's kernel records carry each model's as
                ``at_g1``, ``at_g5``, ``at_g12`` and ``at_g16``.
+ 11. train   — after phase 10, with its models freed: the training path
+               (``launch/train.py``: ``lm_loss``, AdamW with the WSD
+               schedule, microbatches, checkpoints, the supervisor), which
+               runs the kernels' plain versions as the reference does, so
+               no kernel may launch while it trains.  (a) the reduced
+               granite-8b, Mixtral-8x7B, Jamba (with experts), MiniCPM-2B
+               and xlstm-125m in float32: lm_loss and its gradients on the
+               card against the CPU's on the same weights and batch (loss
+               1e-5 relative, every gradient leaf 1e-4 of the gradient's
+               largest); (b) MiniCPM-2B at every published width, all 40
+               layers, 6 steps of 2 x 4096 tokens in 2 microbatches (bf16
+               weights, float32 moments): losses and grad norms finite,
+               the last loss below the first; seconds per step, tokens/s,
+               peak memory and the model-FLOP share; (c) the trained model
+               serves the smoke's first 2 requests through serve_real on
+               the kernels (kernel-vs-plain logits within 3e-2, pool and
+               slots reclaimed, memory back to the weights'); (d)
+               xLSTM-125M at every published width, 8 steps of 8 x 512
+               tokens with gradient compression: the step-8 checkpoint
+               restored onto the card equals the live state bit for bit,
+               and a checkpoint written from CPU tensors restores onto the
+               card; (e) ``launch/train_small`` (60 steps, a failure at 30,
+               one restart) prints OK; (f) a kernel wrapper called on an
+               input that requires grad must raise.
 In phases 4, 5, 7, 8 and 10 the decode steps run as CUDA graphs, one per
 (batch size, table width), captured at a shape's first step and replayed
 after it (``models/decode_graph.py``).  For each model the graph check
@@ -139,12 +163,15 @@ to differ by more; then decode steps alone, eager and replayed, give each
 one's host ms, CUDA-event ms and device-busy share, with the graphs
 captured, their capture seconds and the memory their pool holds.  Each
 phase prints its seconds.
-The last two lines are the kernels' JSON record and the result line.
+The last two lines are the kernels' JSON record and the result line
+(each kernel's ``launches_by_path`` also holds phase 11's runs: zero for
+training, the attention kernels for the trained model's serving).
 """
 import asyncio
 import bisect
 import collections
 import contextlib
+import copy
 import gc
 import http.client
 import json
@@ -153,6 +180,7 @@ import socket
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -165,7 +193,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.config import get_config, get_one_card_config, \
-    replace  # noqa: E402
+    get_reduced_config, replace  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -174,6 +202,8 @@ from repro_torch.kernels import unified_pd as up  # noqa: E402
 from repro_torch.kvcache import kv_pages_for  # noqa: E402
 from repro_torch.launch import serve as serve_engine  # noqa: E402
 from repro_torch.launch import serve_real  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.launch import train_small  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import decode_graph as dg  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
@@ -183,6 +213,10 @@ from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
 from repro_torch.serving.clock import RealTimeClock  # noqa: E402
 from repro_torch.serving.gateway import GatewayPolicy  # noqa: E402
 from repro_torch.serving.http import GatewayHTTPServer  # noqa: E402
+from repro_torch.training import checkpoint as ckpt_mod  # noqa: E402
+from repro_torch.training.optimizer import OptConfig, adamw_init  # noqa: E402
+from repro_torch.training.train_lib import TrainState, \
+    make_train_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -2366,6 +2400,291 @@ def gateway_phase(model):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+# (a) every mixer and FFN the port trains, reduced, float32 (TF32 off):
+# the card's lm_loss and gradients against the CPU's on the same weights
+# and batch.  The gradient bound is 1e-4 of the gradient's largest |value|
+# over all leaves: xLSTM's mLSTM normaliser divides by sums that cancel,
+# and a leaf whose exact gradient is 0 (the sLSTM input-gate bias) holds
+# only rounding noise (tests/test_torch_training.py).
+TRAIN_ARCHS = ("granite-8b", "mixtral-8x7b", "jamba-1.5-large-398b",
+               "minicpm-2b", "xlstm-125m")
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-5, 1e-4
+# ... and one make_train_step (microbatches 2) on each side from the same
+# weights and batch.  Where the CPU step's gradient is above 1e-3 of its
+# largest |value| (ten times the gradient bound, so both signs agree; read
+# from its first moment, (1 - b1) x clip x g, since with an MoE layer the
+# microbatches route otherwise than the whole batch), the first
+# AdamW step moves each parameter by lr x its sign on both sides: the
+# parameters within 1e-5 of their leaf's largest |value|.  The moments are
+# the gradient scaled (mu) and squared (nu): within the gradient bound, and
+# twice it, of their largest |value|.
+TRAIN_OPT = OptConfig(lr=3e-3, warmup_steps=5, stable_steps=100,
+                      decay_steps=10)
+TOL_STEP_PARAM, STEP_MASK = 1e-5, 1e-3
+# (b) MiniCPM-2B at every published width, the reference's train_4k length
+MINICPM_TRAIN = ["--arch", "minicpm-2b", "--full", "--steps", "6",
+                 "--batch", "2", "--seq-len", "4096", "--microbatches", "2",
+                 "--ckpt-every", "1000"]
+# (d) xLSTM-125M at every published width, checkpointed at steps 4 and 8
+XLSTM_TRAIN = ["--arch", "xlstm-125m", "--full", "--steps", "8", "--batch",
+               "8", "--seq-len", "512", "--ckpt-every", "4",
+               "--compress-grads"]
+# (e) the train_small counterpart: its failure at step 30 restarts from the
+# checkpoint of step 30 (one every 10 steps: its default 50 would fail
+# before the first checkpoint)
+TRAIN_SMALL = ["--steps", "60", "--fail-at", "30", "--ckpt-every", "10"]
+
+
+def loss_and_grads(model, toks, labels, pos):
+    loss = tf.lm_loss(model, toks, labels, pos)
+    names, params = zip(*model.named_parameters())
+    return loss.item(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def step_card_vs_cpu(cfg, cpu, batch):
+    """One train step from ``cpu``'s weights on each side: the relative
+    errors of its loss and grad norm, and the worst leaf's error of the
+    parameters and of each moment where the CPU step's gradient is not
+    near 0 (TOL_STEP_PARAM's comment)."""
+    states, metrics = {}, {}
+    for dev in ("cpu", DEVICE):
+        model = copy.deepcopy(cpu).to(dev)
+        state = TrainState(model, adamw_init(dict(model.named_parameters()),
+                                             TRAIN_OPT),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        states[dev], m = make_train_step(cfg, TRAIN_OPT, microbatches=2)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+    cpu_s, card_s = states["cpu"], states[DEVICE]
+    top = max(float(m.abs().max()) for m in cpu_s.opt.mu.values())
+    mask = {n: m.abs() > STEP_MASK * top for n, m in cpu_s.opt.mu.items()}
+
+    def worst(got, want, per_leaf):
+        want = {n: w.detach() for n, w in want.items()}
+        big = max(float(w.abs().max()) for w in want.values())
+        errs = []
+        for n, w in want.items():
+            d = (got[n].detach().cpu() - w)[mask[n]].abs()
+            errs.append((float(d.max()) if d.numel() else 0.0) /
+                        max(float(w.abs().max()) if per_leaf else big, 1e-30))
+        return max(errs)
+
+    mc, mg = metrics["cpu"], metrics[DEVICE]
+    return {"step_loss_rel_err": abs(mg["loss"] - mc["loss"]) / mc["loss"],
+            "step_grad_norm_rel_err": abs(mg["grad_norm"] - mc["grad_norm"])
+            / mc["grad_norm"],
+            "step_param_err": worst(card_s.params, cpu_s.params, True),
+            "step_mu_err": worst(card_s.opt.mu, cpu_s.opt.mu, False),
+            "step_nu_err": worst(card_s.opt.nu, cpu_s.opt.nu, False),
+            "step_masked_share": sum(int(m.sum()) for m in mask.values()) /
+            sum(m.numel() for m in mask.values())}
+
+
+def train_card_vs_cpu():
+    """(a): per arch the loss's relative error and the worst gradient
+    leaf's max |card - cpu| over the gradient's largest |value|, then one
+    train step's (``step_card_vs_cpu``)."""
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = replace(get_reduced_config(arch), dtype="float32")
+        cpu = tf.init_model(cfg, device="cpu", seed=0).requires_grad_()
+        card = copy.deepcopy(cpu).to(DEVICE)
+        rs = np.random.RandomState(1)
+        toks, labels = (torch.from_numpy(rs.randint(
+            0, cfg.vocab_size, size=(2, 32)).astype(np.int32))
+            for _ in range(2))
+        pos = torch.arange(32, dtype=torch.int32).expand(2, 32)
+        lc, gc_ = loss_and_grads(cpu, toks, labels, pos)
+        lg, gg = loss_and_grads(card, *(t.to(DEVICE)
+                                        for t in (toks, labels, pos)))
+        top = max(float(g.abs().max()) for g in gc_.values())
+        worst = max(gc_, key=lambda n: float((gg[n].cpu() - gc_[n])
+                                             .abs().max()))
+        out[arch] = {"loss_cpu": lc, "loss_rel_err": abs(lg - lc) / abs(lc),
+                     "grad_err": float((gg[worst].cpu() - gc_[worst]).abs()
+                                       .max()) / top, "worst_leaf": worst}
+        out[arch].update(step_card_vs_cpu(cfg, cpu, {
+            "inputs": toks, "labels": labels, "positions": pos}))
+    limits = {"loss_rel_err": TOL_TRAIN_LOSS, "grad_err": TOL_TRAIN_GRAD,
+              "step_loss_rel_err": TOL_TRAIN_LOSS,
+              "step_grad_norm_rel_err": TOL_TRAIN_GRAD,
+              "step_param_err": TOL_STEP_PARAM,
+              "step_mu_err": TOL_TRAIN_GRAD,
+              "step_nu_err": 2 * TOL_TRAIN_GRAD}
+    say("train", phase="card_vs_cpu", dtype="float32", tf32=False,
+        limits=limits, **out)
+    for arch, r in out.items():
+        require(all(r[k] <= lim for k, lim in limits.items()),
+                f"train: {arch}'s loss, gradients or train step on the card "
+                f"differ from the CPU's: {r}")
+    return out
+
+
+def tree_equal(a, b) -> bool:
+    la, lb = ckpt_mod.leaves(a), ckpt_mod.leaves(b)
+    return list(la) == list(lb) and all(
+        la[n].dtype == lb[n].dtype and la[n].device == lb[n].device and
+        torch.equal(la[n], lb[n]) for n in la)
+
+
+def train_run(argv, card):
+    """One ``launch/train.main`` run on the card with the kernels' counts
+    set to 0 before it: training runs the plain versions (``impl="ref"``,
+    as the reference does), so none may launch.  Checks every loss and
+    grad norm finite and the last loss below the first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    out = train_launch.main(argv + ["--device", DEVICE])
+    torch.cuda.synchronize()
+    out["launches"] = ops.launches()
+    cfg = out["state"].model.cfg
+    n = sum(p.numel() for p in out["state"].model.parameters())
+    tokens = int(argv[argv.index("--batch") + 1]) * \
+        int(argv[argv.index("--seq-len") + 1])
+    out["record"] = {
+        "config": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": n, "tokens_per_step": tokens, "dtype": cfg.dtype,
+        "moment_dtype": cfg.opt_dtype, "losses": out["losses"],
+        "grad_norms": out["grad_norms"], "step_s": out["step_s"],
+        "first_step_s": out["first_step_s"],
+        "tokens_per_s": out["tokens_per_s"],
+        "peak_gb": out["peak_bytes"] / 1e9,
+        "model_flop_share": 6 * n * tokens / (
+            out["step_s"] * PEAK_FLOPS[torch.bfloat16]),
+        "model_flop_share_counts": "6 N tokens, no remat recompute, "
+        "over 989 TFLOP/s", "kernel_launches": out["launches"],
+        "card": card}
+    require(not any(out["launches"].values()),
+            f"train: {cfg.name}'s training launched kernels "
+            f"{out['launches']}: it runs the plain versions")
+    require(out["finite"], f"train: {cfg.name}: a loss or grad norm is not "
+            f"finite: {out['losses']}, {out['grad_norms']}")
+    require(out["losses"][-1] < out["losses"][0],
+            f"train: {cfg.name}'s loss did not descend: {out['losses']}")
+    return out
+
+
+def serve_trained(model, mem_before, card):
+    """(c): the trained model serves the smoke's first 2 requests through
+    serve_real on the kernels (no graph is built), kernel path against
+    plain path on its first steps; pool and slots reclaimed, and the memory
+    after serving is the weights' (no optimizer state or graph left)."""
+    cfg = model.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqs = serving_requests(cfg)[:2]
+    ops.reset_launches()
+    result = serve_real.serve(model, reqs, slots=SERVE["slots"],
+                              page=SERVE["page"], f_decode=SERVE["f_decode"])
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    errs, _ = first_steps_kernel_vs_plain(model, reqs, SERVE["page"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    after = torch.cuda.memory_allocated()
+    say("train", phase="trained_serves", config=cfg.name, launches=launches,
+        **serve_real.summarize(result), metric="max|kernel-plain|/max|plain|",
+        limit=TOL_LOGITS, **errs, mem_before_training_gb=mem_before / 1e9,
+        mem_after_serving_gb=after / 1e9, weights_gb=weights / 1e9,
+        card=card)
+    launched = {k for k, n in launches.items() if n > 0}
+    require(launched == path_kernels(cfg),
+            f"train: the trained {cfg.name} launched {sorted(launched)}")
+    require(result["pool_reclaimed"] and result["state_slots_reclaimed"],
+            "train: the trained model's pool or slots not reclaimed")
+    require(all(e < TOL_LOGITS for e in errs.values()),
+            f"train: the trained model's kernel and plain logits differ: "
+            f"{errs}")
+    require(all(p.grad is None for p in model.parameters()) and
+            after <= mem_before + weights + (256 << 20),
+            f"train: {after / 1e9:.2f} GB held after serving, over the "
+            f"{weights / 1e9:.2f} GB of weights")
+    return launches
+
+
+def xlstm_checkpoints(out, ckpt_dir):
+    """(d): the step-8 checkpoint restored onto the card equals the live
+    state bit for bit; a checkpoint written from CPU tensors restores onto
+    the card."""
+    state = out["state"]
+    live = ckpt_mod.restore_checkpoint(ckpt_dir, state, step=8)
+    host = ckpt_mod.restore_checkpoint(ckpt_dir, state, step=8, device="cpu")
+    from_cpu = os.path.join(ckpt_dir, "from_cpu")
+    ckpt_mod.save_checkpoint(from_cpu, 8, host)
+    back = ckpt_mod.restore_checkpoint(from_cpu, host, device=DEVICE)
+    res = {"kept_steps": sorted(os.listdir(ckpt_dir)),
+           "restored_equals_live": tree_equal(live, state),
+           "host_copy_on_cpu": host.model.tok.device.type == "cpu",
+           "from_cpu_restored_on_card_equals_live": tree_equal(back, state)}
+    say("train", phase="xlstm_checkpoints", **res)
+    require(res["restored_equals_live"] and res["host_copy_on_cpu"] and
+            res["from_cpu_restored_on_card_equals_live"],
+            f"train: checkpoint round trip: {res}")
+
+
+def grad_guard_fault():
+    """(f): a kernel wrapper called on an input that requires grad, under
+    grad mode, must raise (no kernel has a backward)."""
+    q = torch.randn(1, 64, 4, 64, device=DEVICE, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 64, 4, 64, device=DEVICE, dtype=torch.bfloat16)
+    try:
+        ops.flash_prefill(q, k, k)
+    except RuntimeError as e:
+        say("train", phase="grad_guard_fault", raised=str(e))
+        return
+    raise PhaseFailed("train: flash_prefill ran on an input that requires "
+                      "grad: its output would be silently detached")
+
+
+def train_phase(card):
+    """Phase 11; returns the launch counts of its runs by path."""
+    with timed("train_card_vs_cpu"):
+        train_card_vs_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    with timed("train_minicpm-2b"):
+        out = train_run(MINICPM_TRAIN, card)
+    say("train", phase="minicpm-2b", **out["record"])
+    launches = {"minicpm-2b-train": out["launches"]}
+    model = out["state"].model
+    del out
+    with timed("train_minicpm-2b_serves"):
+        launches["minicpm-2b-trained-serve"] = serve_trained(
+            model, mem_before, card)
+    del model
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d, \
+            timed("train_xlstm-125m"):
+        out = train_run(XLSTM_TRAIN + ["--ckpt-dir", d], card)
+        say("train", phase="xlstm-125m", **out["record"])
+        launches["xlstm-125m-train"] = out["launches"]
+        xlstm_checkpoints(out, d)
+        del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timed("train_small"):
+        ops.reset_launches()
+        out = train_small.main(TRAIN_SMALL + ["--device", DEVICE])
+        launches["train_small"] = ops.launches()
+        say("train", phase="train_small", losses_first_min_last=[
+            out["losses"][0], min(out["losses"]), out["losses"][-1]],
+            restarts=out["supervisor"].restarts, steps=len(out["losses"]),
+            log_restart=[e for e in out["supervisor"].log
+                         if e["event"] == "restart"])
+        require(out["supervisor"].restarts == 1,
+                "train: train_small did not restart once")
+        del out
+    grad_guard_fault()
+    return launches
+
+
 @contextlib.contextmanager
 def timed(phase):
     t = time.perf_counter()
@@ -2412,6 +2731,10 @@ def main():
         with timed("archs"):
             archs_attn, archs_launches = archs_phase(gen)
         launches.update(archs_launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with timed("train"):
+            launches.update(train_phase(card))
         say("time", phase="total", seconds=time.perf_counter() - t_start)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

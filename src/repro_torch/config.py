@@ -3,9 +3,8 @@ fields and the helpers the ported modules and the perfmodel read, the
 serving engine's ``SLOConfig`` and ``ServeConfig``, and the architecture
 registry.
 
-A copy of the parts of ``repro/config.py`` the port needs.  The MoE,
-Mamba and xLSTM sub-configs are copied as data (the xLSTM one only for
-the parameter and state counts: no xLSTM mixer is ported yet).
+A copy of the parts of ``repro/config.py`` the port needs, with the
+MoE, Mamba and xLSTM sub-configs.
 """
 from __future__ import annotations
 

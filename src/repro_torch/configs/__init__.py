@@ -8,3 +8,4 @@ from repro_torch.configs import mixtral_8x22b  # noqa: F401
 from repro_torch.configs import qwen2_5_14b  # noqa: F401
 from repro_torch.configs import qwen3_moe_235b_a22b  # noqa: F401
 from repro_torch.configs import starcoder2_3b  # noqa: F401
+from repro_torch.configs import xlstm_125m  # noqa: F401

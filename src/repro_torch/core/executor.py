@@ -325,6 +325,7 @@ class KernelExecutor(Executor):
     def __init__(self, model, *, prompts, serve, device,
                  hw: HardwareSpec = H100, state_rows: Optional[int] = None,
                  tokens: Optional[Dict[int, List[int]]] = None):
+        tf.check_decodable(model.cfg)
         self.model = model
         self.cfg = model.cfg
         self.serve = serve
@@ -400,6 +401,7 @@ class KernelExecutor(Executor):
             "item 'hybrid and disagg real execution')")
 
     # -- execution --------------------------------------------------------------
+    @torch.no_grad()
     def execute(self, plan: StepPlan, view: SchedView) -> StepOutputs:
         if plan.hybrid is not None:
             raise NotImplementedError(

@@ -164,6 +164,17 @@ def dtype_code(*tensors) -> int:
     return DTYPE_CODES[dts.pop()]
 
 
+def check_no_grad(name: str, *tensors) -> None:
+    """The kernels have no backward: under grad mode an input that
+    requires grad would come out detached, and a model trained through
+    them would silently not learn.  Raise instead (training runs
+    ``impl="ref"``, as the reference's does)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: call it under "
+                           "torch.no_grad(), or train through impl='ref'")
+
+
 def check_cuda(*tensors) -> None:
     """Every tensor on one CUDA device; the head dim (last) dense."""
     devs = {t.device for t in tensors}

@@ -43,6 +43,7 @@ def bhs_strides(t):
 
 def flash_prefill(q, k, v, *, window: Optional[int] = None):
     """q (B,Hq,S,D), k/v (B,Hkv,S,D) -> (B,Hq,S,D) in q's dtype."""
+    build.check_no_grad("flash_prefill", q, k, v)
     if q.device.type == "cpu":
         return ref.causal_attention(q, k, v, window=window)
     build.check_cuda(q, k, v)

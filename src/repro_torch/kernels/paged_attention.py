@@ -98,6 +98,7 @@ def check_decode(q, k_pages, v_pages, block_tables, seq_lens) -> None:
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     """q (B,Hq,D); k/v_pages (N,page,Hkv,D); block_tables (B,max_pages)
     int32; seq_lens (B,) int32.  Returns (B,Hq,D)."""
+    build.check_no_grad("paged_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return ref.paged_attention(q, k_pages, v_pages, block_tables,
                                    seq_lens)

@@ -59,6 +59,7 @@ def ssm_scan(xs, dt, A, Bm, Cm, h0=None):
     """xs/dt (B,L,din) f32; A (din,ds) f32; Bm/Cm (B,L,ds) f32; h0
     (B,din,ds) f32 or None for a zero state.  Returns y (B,L,din) f32 and
     the final state h (B,din,ds) f32."""
+    build.check_no_grad("ssm_scan", xs, dt, A, Bm, Cm, h0)
     if xs.device.type == "cpu":
         return ref.ssm_scan(xs, dt, A, Bm, Cm, h0=h0)
     xs, dt, A, Bm, Cm = (_dense(t) for t in (xs, dt, A, Bm, Cm))

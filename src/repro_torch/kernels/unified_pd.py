@@ -200,6 +200,7 @@ def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,
     its times into (the module docstring).
     Returns (o_p (Bp,Hq,Sp,D), o_d (Bd,Hq,D)).
     """
+    build.check_no_grad("unified_pd", q_p, k_p, v_p, q_d, k_pages, v_pages)
     if q_p.device.type == "cpu":
         return ref.unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages,
                               block_tables, seq_lens, window=window)

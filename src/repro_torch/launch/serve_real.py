@@ -87,11 +87,13 @@ def resolve_device(device: Optional[str]) -> torch.device:
     return torch.device(device)
 
 
+@torch.no_grad()
 def serve(model, requests: List[Request], *, slots: int = SLOTS,
           page: int = PAGE, f_decode: float = 0.5) -> dict:
     """Serve ``requests`` (all arriving now) to completion.  Returns a
     summary with the finished requests, step counts by kind and whether
-    the KV pool and the decode slots ended fully reclaimed.  Under a
+    the KV pool and the decode slots ended fully reclaimed.  It builds no
+    autograd graph, so a model being trained serves as it is.  Under a
     sliding window a request holds blocks for its whole context, and its
     block table is the ring of its first W / page blocks."""
     cfg = model.cfg

@@ -15,10 +15,12 @@ from torch import nn
 
 class ParamInit:
     """Draws parameters as the reference does: normal * 1/sqrt(fan_in)
-    (fan_in = shape[0]) unless a scale is given, ones, or zeros; drawn in
-    float32 from an explicit ``torch.Generator`` on ``device``, then cast.
-    With no generator, ``normal`` leaves the tensor uninitialised for a
-    caller that loads weights (``convert.py``)."""
+    (fan_in = shape[0]) unless a scale is given, ones, zeros, or a
+    constant; drawn in float32 from an explicit ``torch.Generator`` on
+    ``device``, then cast.  With no generator, ``normal`` leaves the
+    tensor uninitialised for a caller that loads weights (``convert.py``).
+    Parameters are made with ``requires_grad=False`` (served models build
+    no graph); ``requires_grad_()`` on the model makes it trainable."""
 
     def __init__(self, generator, device, dtype):
         self.generator = generator
@@ -36,12 +38,23 @@ class ParamInit:
         return nn.Parameter(x.to(self.dtype), requires_grad=False)
 
     def ones(self, *shape) -> nn.Parameter:
-        return nn.Parameter(torch.ones(shape, device=self.device,
-                                       dtype=self.dtype), requires_grad=False)
+        return self.full(*shape, value=1.0)
 
     def zeros(self, *shape) -> nn.Parameter:
-        return nn.Parameter(torch.zeros(shape, device=self.device,
-                                        dtype=self.dtype), requires_grad=False)
+        return self.full(*shape, value=0.0)
+
+    def full(self, *shape, value: float) -> nn.Parameter:
+        return nn.Parameter(torch.full(shape, value, device=self.device,
+                                       dtype=self.dtype), requires_grad=False)
+
+
+def chunk_size(n: int, chunk: int) -> int:
+    """The largest divisor of n not above ``chunk``: the reference's size
+    for a sequence's chunks (xLSTM scans, the chunked cross-entropy)."""
+    c = min(chunk, n)
+    while n % c:
+        c -= 1
+    return c
 
 
 def rmsnorm(x, w, eps: float = 1e-5):

@@ -1,16 +1,21 @@
-"""Decoder assembly for attention and Mamba mixers with dense or MoE FFNs.
+"""Decoder assembly: attention, Mamba and xLSTM mixers, dense, MoE or no FFN.
 
 Counterpart of ``repro/models/transformer.py``.  Pre-norm residual blocks:
-    x = x + mixer(rmsnorm(x))          mixer in {attn, mamba}
-    x = x + ffn(rmsnorm(x))            ffn in {dense, moe}
-A plain loop over layers takes the place of the reference's scan over
-stacked periods; ``convert.py`` unstacks the reference's parameters.
-Any other mixer or FFN (xLSTM, none) raises ``NotImplementedError``.
+    x = x + mixer(rmsnorm(x))          mixer in {attn, mamba, mlstm, slstm}
+    x = x + ffn(rmsnorm(x))            ffn in {dense, moe, none}
+xLSTM mixers carry their own up and down projections, so xLSTM models
+take FFN "none".  A plain loop over layers takes the place of the
+reference's scan over stacked periods; ``convert.py`` unstacks the
+reference's parameters.
 
 Entry points:
+  * ``lm_loss``          — the training loss over full sequences, with
+                           per-layer remat and the LM head and
+                           cross-entropy in checkpointed chunks;
   * ``forward``          — prefill over full sequences (``return_aux``
-                           gives per-layer K/V; ``last_only`` the LM head
-                           on the final position);
+                           gives per-layer K/V or final state;
+                           ``last_only`` the LM head on the final
+                           position);
   * ``decode_forward``   — one-token step over the paged KV pool;
   * ``fused_pd_forward`` — the RAPID concurrent step: a prefill batch and a
                            decode batch through every layer together, with
@@ -20,7 +25,8 @@ Entry points:
 
 An MoE layer takes the reference's capacity policy of the same step:
 ``forward`` with ``return_aux`` (the serving prefill) the inference
-policy, without it the training policy, ``decode_forward`` dropless; in
+policy, without it and in ``lm_loss`` the training policy,
+``decode_forward`` dropless; in
 ``fused_pd_forward`` the prefill rows are routed as ``forward`` with
 ``return_aux`` routes them and the decode rows dropless, apart, since
 grouping them together would change the groups, the capacity and which
@@ -41,6 +47,13 @@ tables the entry points take hold at most W / page entries.  A prefill
 writes its last min(S, W) tokens; a decode writes at ``seq_lens % W``
 before attention and reads min(seq_lens + 1, W) slots, as the
 reference's ring cache does.
+
+The decode path has no xLSTM state yet: ``init_cache``,
+``decode_forward`` and ``fused_pd_forward`` refuse an xLSTM model.
+
+Only ``lm_loss`` builds an autograd graph; the serving entry points run
+under ``torch.no_grad()``, so a model made trainable (``requires_grad_()``)
+serves as before.
 """
 from __future__ import annotations
 
@@ -48,35 +61,39 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (ParamInit, embed_tokens, lm_logits,
-                                       rmsnorm)
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.layers import (ParamInit, chunk_size, embed_tokens,
+                                       lm_logits, rmsnorm)
+
+NEG_INF = -1e30
+XLSTM = ("mlstm", "slstm")
+_MIXERS = {"attn": attn_mod.init_attention, "mamba": mamba_mod.Mamba,
+           "mlstm": xlstm_mod.MLSTM, "slstm": xlstm_mod.SLSTM}
+_FFNS = {"dense": moe_mod.init_dense_ffn, "moe": moe_mod.init_moe}
 
 
 class Block(nn.Module):
-    """``kind`` is the mixer: "attn" or "mamba"; ``ffn_kind`` the FFN:
-    "dense" or "moe"."""
+    """``kind`` is the mixer: "attn", "mamba", "mlstm" or "slstm";
+    ``ffn_kind`` the FFN: "dense", "moe" or "none" (no norm2, no ffn)."""
 
     def __init__(self, init: ParamInit, cfg, pos: int):
         super().__init__()
         self.kind, self.ffn_kind = cfg.mixer_at(pos), cfg.ffn_at(pos)
-        if self.kind not in ("attn", "mamba") or \
-                self.ffn_kind not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"{cfg.name}: only attention or Mamba + dense or MoE FFN "
-                f"blocks are ported (layer {pos}: {self.kind}/"
-                f"{self.ffn_kind})")
+        if self.kind not in _MIXERS or \
+                self.ffn_kind not in (*_FFNS, "none"):
+            raise ValueError(f"{cfg.name}: no such block (layer {pos}: "
+                             f"{self.kind}/{self.ffn_kind})")
         self.norm1 = init.ones(cfg.d_model)
-        self.mixer = (attn_mod.init_attention(init, cfg)
-                      if self.kind == "attn" else mamba_mod.Mamba(init, cfg))
-        self.norm2 = init.ones(cfg.d_model)
-        self.ffn = (moe_mod.init_dense_ffn(init, cfg)
-                    if self.ffn_kind == "dense" else
-                    moe_mod.init_moe(init, cfg))
+        self.mixer = _MIXERS[self.kind](init, cfg)
+        if self.ffn_kind != "none":
+            self.norm2 = init.ones(cfg.d_model)
+            self.ffn = _FFNS[self.ffn_kind](init, cfg)
 
 
 class Transformer(nn.Module):
@@ -108,9 +125,20 @@ def init_model(cfg, *, device, seed: int = 0, dtype=None,
         return Transformer(ParamInit(generator, device, dtype), cfg)
 
 
+def check_decodable(cfg) -> None:
+    """Raise for a model the decode path cannot hold state for yet."""
+    if any(m in XLSTM for m in cfg.layer_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: serving an xLSTM model needs the mLSTM/sLSTM "
+            "decode steps and their state rows in the cache, which are not "
+            "ported yet (forward and lm_loss run it)")
+
+
 def _ffn_residual(blk: Block, cfg, x, **moe_policy):
-    """x + ffn(rmsnorm(x)); an MoE layer routes x under ``moe_policy``
-    (``moe_ffn``'s ``dropless`` / ``inference``)."""
+    """x + ffn(rmsnorm(x)), or x without an FFN; an MoE layer routes x
+    under ``moe_policy`` (``moe_ffn``'s ``dropless`` / ``inference``)."""
+    if blk.ffn_kind == "none":
+        return x
     h = rmsnorm(x, blk.norm2, cfg.norm_eps)
     if blk.ffn_kind == "dense":
         return x + moe_mod.dense_ffn(blk.ffn, cfg, h)
@@ -133,33 +161,98 @@ def _page(cache) -> int:
     return next(c["k"].shape[1] for c in cache if "k" in c)
 
 
+def _block(blk: Block, cfg, x, positions, impl: str,
+           inference: bool = False):
+    """One block over full sequences: (x out, the mixer's K/V or final
+    state).  ``inference`` picks an MoE layer's capacity policy."""
+    h = rmsnorm(x, blk.norm1, cfg.norm_eps)
+    if blk.kind == "attn":
+        out, (k, v) = attn_mod.full_attention(blk.mixer, cfg, h, positions,
+                                              impl=impl)
+        state = {"k": k, "v": v}
+    elif blk.kind == "mamba":
+        out, state = mamba_mod.mamba_forward(blk.mixer, cfg, h, impl=impl)
+    elif blk.kind == "mlstm":
+        out, state = xlstm_mod.mlstm_forward(blk.mixer, cfg, h)
+    else:
+        out, state = xlstm_mod.slstm_forward(blk.mixer, cfg, h)
+    return _ffn_residual(blk, cfg, x + out, inference=inference), state
+
+
 @torch.no_grad()
 def forward(model: Transformer, inputs, positions, *, impl: str = "kernel",
             return_aux: bool = False, last_only: bool = False):
     """inputs (B,S) tokens, positions (B,S).  Returns logits
     (B,S|1,vocab_padded), or (logits, aux) with ``return_aux`` where aux
     is a per-layer list: {"k", "v"} (B,S,Hkv,D) for an attention layer,
-    the final state {"conv", "ssm"} for a Mamba layer."""
-    cfg = model.cfg
+    the final state for a recurrent one ({"conv", "ssm"} Mamba, {"C",
+    "n", "m"} mLSTM, {"c", "n", "h", "m"} sLSTM)."""
     x = embed_tokens(model, inputs)
     aux = []
     for blk in model.layers:
-        h = rmsnorm(x, blk.norm1, cfg.norm_eps)
-        if blk.kind == "attn":
-            out, (k, v) = attn_mod.full_attention(blk.mixer, cfg, h,
-                                                  positions, impl=impl)
-            state = {"k": k, "v": v}
-        else:
-            out, state = mamba_mod.mamba_forward(blk.mixer, cfg, h,
-                                                 impl=impl)
         # return_aux is the serving prefill: the inference capacity policy
-        x = _ffn_residual(blk, cfg, x + out, inference=return_aux)
+        x, state = _block(blk, model.cfg, x, positions, impl,
+                          inference=return_aux)
         if return_aux:
             aux.append(state)
     if last_only:
         x = x[:, -1:]
     logits = lm_logits(model, x)
     return (logits, aux) if return_aux else logits
+
+
+def _block_out(blk: Block, cfg, x, positions, impl: str):
+    return _block(blk, cfg, x, positions, impl)[0]
+
+
+def _ce_sum(model: Transformer, x, labels):
+    """Summed cross-entropy of one chunk: the LM head in float32, padded
+    vocab columns at NEG_INF."""
+    cfg = model.cfg
+    logits = lm_logits(model, x).float()
+    if cfg.vocab_padded != cfg.vocab_size:
+        logits = logits.masked_fill(
+            torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size,
+            NEG_INF)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def lm_loss(model: Transformer, tokens, labels, positions, *,
+            remat: bool = True, ce_chunk: int = 512):
+    """Mean next-token cross-entropy over B*S: tokens, labels, positions
+    (B,S).  The trunk runs without the LM head, each layer checkpointed
+    under ``remat`` (its activations recomputed in the backward; an sLSTM
+    layer's token loop is checkpointed by the layer itself); the LM
+    head and the cross-entropy run over chunks of ``ce_chunk`` positions
+    (the largest divisor of S not above it), each chunk checkpointed, so
+    the float32 logits of one chunk (B, c, vocab_padded) are live at a
+    time.  An MoE layer takes the training capacity policy.  The layers
+    run their plain versions (``impl="ref"``), as the reference trains:
+    the hand-written kernels have no backward.
+
+    The reference barriers each layer's parameters inside its scan
+    (``grad_barrier``) so that XLA cannot hoist float32 upcasts of the
+    whole stacked weights out of the loop; eager PyTorch runs each layer's
+    ops where they are written and hoists nothing, so none is needed."""
+    cfg = model.cfg
+    x = embed_tokens(model, tokens)
+    for blk in model.layers:
+        # an sLSTM layer checkpoints its token loop in chunks itself: under
+        # the layer's remat that loop, one small launch per op and token,
+        # would run forward three times instead of twice
+        if remat and blk.kind != "slstm":
+            x = checkpoint(_block_out, blk, cfg, x, positions, "ref",
+                           use_reentrant=False)
+        else:
+            x = _block_out(blk, cfg, x, positions, "ref")
+    B, S, _ = x.shape
+    c = chunk_size(S, ce_chunk)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, c):
+        total = total + checkpoint(_ce_sum, model, x[:, s0:s0 + c],
+                                   labels[:, s0:s0 + c], use_reentrant=False)
+    return total / (B * S)
 
 
 def init_cache(cfg, num_blocks: int, page: int, slots: int, *,
@@ -169,6 +262,7 @@ def init_cache(cfg, num_blocks: int, page: int, slots: int, *,
     decode slots, {"conv" (slots, d_conv-1, din) in ``dtype``,
     "ssm" (slots, din, ds) float32}.  Under a sliding window the page must
     divide it (the ring's slots are whole pages)."""
+    check_decodable(cfg)
     attn_mod.ring_pages(cfg.sliding_window, page)
     dtype = dtype or getattr(torch, cfg.dtype)
     shape = (num_blocks, page, cfg.kv_heads_padded(1), cfg.head_dim)
@@ -226,6 +320,7 @@ def decode_forward(model: Transformer, inputs, positions, cache,
     Returns (logits (B,1,vocab_padded), cache) — the cache is updated in
     place."""
     cfg = model.cfg
+    check_decodable(cfg)
     if cfg.sliding_window:
         attn_mod.check_ring_tables(block_tables, cfg.sliding_window,
                                    _page(cache))
@@ -264,6 +359,7 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
     products as the reference's forward + decode_forward step."""
     attn_mod.check_impl(impl)
     cfg = model.cfg
+    check_decodable(cfg)
     w = cfg.sliding_window
     if w:
         attn_mod.check_ring_tables(block_tables, w, _page(cache))

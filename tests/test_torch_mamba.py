@@ -308,9 +308,10 @@ def test_jamba_config_matches_reference(reduced):
 def test_unchanged_jamba_raises_naming_moe_layers(reduced):
     """Either config as it stands builds with an MoE FFN on each odd
     layer and the published expert widths (the published config is built
-    on the meta device, which allocates nothing); only a layer kind that
-    is still not ported raises, naming the layer.  The name is kept from
-    when building refused the MoE layers, which it no longer does."""
+    on the meta device, which allocates nothing); an unknown layer kind
+    raises, naming the layer, and FFN "none" builds a layer with neither
+    norm2 nor FFN.  The name is kept from when building refused the MoE
+    layers (and then FFN "none"), which it no longer does."""
     cfg = get_reduced_config(ARCH) if reduced else get_config(ARCH)
     model = tf.Transformer(layers.ParamInit(None, "meta", torch.bfloat16),
                            cfg)
@@ -322,9 +323,13 @@ def test_unchanged_jamba_raises_naming_moe_layers(reduced):
                                                 m.d_ff_expert)
     assert all(isinstance(model.layers[i].ffn, moe_mod.MoEFFN)
                for i in moe_layers)
-    with pytest.raises(NotImplementedError, match=r"layer 1: mamba/none"):
+    with pytest.raises(ValueError, match=r"layer 1: mamba/conv"):
         tf.Transformer(layers.ParamInit(None, "meta", torch.bfloat16),
-                       replace(cfg, ffn_pattern=("dense", "none")))
+                       replace(cfg, ffn_pattern=("dense", "conv")))
+    bare = tf.Transformer(layers.ParamInit(None, "meta", torch.bfloat16),
+                          replace(cfg, ffn_pattern=("dense", "none")))
+    assert not hasattr(bare.layers[1], "ffn") and \
+        not hasattr(bare.layers[1], "norm2")
 
 
 def test_serve_main_on_jamba_raises_until_moe_is_ported(capsys):

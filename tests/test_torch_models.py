@@ -362,8 +362,8 @@ def test_init_model_is_seeded_and_scaled():
     assert abs(float(w.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
     assert torch.equal(a.layers[0].norm1, torch.ones(cfg.d_model,
                                                      dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError):
-        tf.init_model(replace(cfg, layer_pattern=("mlstm",)), device="cpu")
+    with pytest.raises(ValueError, match="layer 0: conv/dense"):
+        tf.init_model(replace(cfg, layer_pattern=("conv",)), device="cpu")
 
 
 def test_kv_cache_manager_lifecycle():

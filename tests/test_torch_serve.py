@@ -87,9 +87,10 @@ def test_serve_main_needs_gpu_unless_cpu_asked(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Every module of the port (the engine stack's packages named first),
-    and chip_smoke.py, import in a fresh interpreter without loading jax
-    or any module of ``repro``."""
+    """Every module of the port (the engine stack's packages named first;
+    the training path's among the modules that must be there), and
+    chip_smoke.py, import in a fresh interpreter without loading jax or
+    any module of ``repro``."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -116,7 +117,16 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.serving.gateway', 'repro_torch.serving.http',\n"
         "        'repro_torch.serving.cluster', 'repro_torch.serving.admission',\n"
         "        'repro_torch.serving.faults',\n"
-        "        'repro_torch.serving.workloads'} <= set(engine + mods)\n"
+        "        'repro_torch.serving.workloads',\n"
+        "        'repro_torch.training', 'repro_torch.training.optimizer',\n"
+        "        'repro_torch.training.train_lib',\n"
+        "        'repro_torch.training.checkpoint',\n"
+        "        'repro_torch.training.compression',\n"
+        "        'repro_torch.training.resilience',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.models.xlstm',\n"
+        "        'repro_torch.configs.xlstm_125m',\n"
+        "        'repro_torch.launch.train',\n"
+        "        'repro_torch.launch.train_small'} <= set(engine + mods)\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
