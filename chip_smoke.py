@@ -152,7 +152,27 @@ the result line:
                card; (e) ``launch/train_small`` (60 steps, a failure at 30,
                one restart) prints OK; (f) a kernel wrapper called on an
                input that requires grad must raise.
-In phases 4, 5, 7, 8 and 10 the decode steps run as CUDA graphs, one per
+ 12. cells   — after phase 11: (a) xLSTM-125M at every published width
+               (seeded bf16 weights) through serve_real and the engine
+               path on the smoke's 8 requests: no kernel may launch (its
+               mixers have none in the reference), pool and rows
+               reclaimed; the graph check (rolled state rows as its
+               second fault) and the decode profile; the decode step
+               against the full forward within the reference's 0.25 of
+               the forward's std, in bf16 and with float32 weights.
+               (b) Qwen2-VL-72B's one-card cut (36 of 80
+               layers, M-RoPE, stub patch embeddings) and MusicGen-large
+               whole (stub frame embeddings): the attention kernels at
+               their cells' shapes as in phase 10, then launch/steps.py's
+               prefill (1 x 2048), decode (8 sequences of 1024-2032
+               tokens, four steps through DecodeGraphs) and fused (1 x
+               1024 + 8 decodes) cells on the kernels against the plain
+               versions (3e-2), replays bit-equal to eager, and for
+               Qwen2-VL planted position faults; each cut from the
+               reference's shapes is printed as a ``reduced`` list.  The
+               result line's kernel records carry the two models' as
+               ``at_qwen2_vl`` and ``at_musicgen``.
+In phases 4, 5, 7, 8, 10 and 12 the decode steps run as CUDA graphs, one per
 (batch size, table width), captured at a shape's first step and replayed
 after it (``models/decode_graph.py``).  For each model the graph check
 compares, at the decode batch, three replayed steps (one crossing a page
@@ -192,8 +212,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.config import get_config, get_one_card_config, \
-    get_reduced_config, replace  # noqa: E402
+from repro_torch.config import SHAPES, ShapeConfig, get_config, \
+    get_one_card_config, get_reduced_config, replace  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -202,6 +222,7 @@ from repro_torch.kernels import unified_pd as up  # noqa: E402
 from repro_torch.kvcache import kv_pages_for  # noqa: E402
 from repro_torch.launch import serve as serve_engine  # noqa: E402
 from repro_torch.launch import serve_real  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch import train_small  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
@@ -1074,7 +1095,8 @@ def window_logits_fault(model, prompt):
 
 def path_kernels(cfg):
     """The kernels a serving run of ``cfg`` launches: the three attention
-    kernels, and ssm_scan when it has Mamba layers."""
+    kernels, and ssm_scan when it has Mamba layers; none for xLSTM, whose
+    mixers have no kernel in the reference."""
     kinds = {cfg.mixer_at(i) for i in range(cfg.num_layers)}
     names = set()
     if "attn" in kinds:
@@ -1697,14 +1719,15 @@ def profile_decode(model, reqs, steps=5):
     return out
 
 
-def mamba_rows(cache):
-    """A copy of every Mamba layer's state rows."""
-    return [{k: c[k].clone() for k in ("conv", "ssm")} for c in cache
-            if "ssm" in c]
+def state_rows(cache):
+    """A copy of every recurrent layer's state rows (Mamba, mLSTM,
+    sLSTM)."""
+    return [{k: t.clone() for k, t in c.items()} for c in cache
+            if "k" not in c]
 
 
-def put_mamba_rows(cache, rows):
-    for c, saved in zip([c for c in cache if "ssm" in c], rows):
+def put_state_rows(cache, rows):
+    for c, saved in zip([c for c in cache if "k" not in c], rows):
         for k, t in saved.items():
             c[k].copy_(t)
 
@@ -1713,7 +1736,7 @@ def decode_graph_check(model, reqs, gen):
     """The captured decode step against the eager ``decode_forward`` on
     the same inputs and cache, at the serving decode batch: 4 sequences
     with the first 4 prompts' lengths cached (the first one a token short
-    of a page boundary), random K/V and Mamba state, scattered blocks,
+    of a page boundary), random K/V and recurrent state, scattered blocks,
     and random input tokens at every step.
     Each shape is captured first (its first step runs eagerly; the state
     rows are put back after it, and the K/V it wrote lie where no later
@@ -1728,7 +1751,9 @@ def decode_graph_check(model, reqs, gen):
     ``lens`` alone were not refreshed must differ by more than any sound
     step (it moves one attention position by one, which a model with one
     attention layer in eight, as the Jamba period, may see by less than
-    TOL_LOGITS)."""
+    TOL_LOGITS); in a model without attention, whose step reads no lens
+    (xLSTM), a replay whose state rows were rolled by one in place of
+    it."""
     cfg, page, W = model.cfg, SERVE["page"], model.cfg.sliding_window
     B = SERVE["slots"]
     ns = [len(r.prompt) for r in reqs[:B]]
@@ -1760,11 +1785,11 @@ def decode_graph_check(model, reqs, gen):
     def eager(args):
         """The eager step's logits from the current state; the state rows
         are put back after it."""
-        saved = mamba_rows(cache)
+        saved = state_rows(cache)
         toks, lens, tabs, rows = args
         logits = tf.decode_forward(model, toks, lens[:, None], cache, tabs,
                                    lens, rows)[0].clone()
-        put_mamba_rows(cache, saved)
+        put_state_rows(cache, saved)
         return logits
 
     graphs = dg.DecodeGraphs(model, cache, max_batch=B)
@@ -1773,11 +1798,11 @@ def decode_graph_check(model, reqs, gen):
         args = inputs(i, lens)
         shapes.setdefault(tuple(args[2].shape), args)
     for args in shapes.values():
-        saved = mamba_rows(cache)
+        saved = state_rows(cache)
         graphs.step(*args)
         require(graphs.ran == "capture", f"{cfg.name}: shape "
                 f"{tuple(args[2].shape)} was not captured at its first step")
-        put_mamba_rows(cache, saved)
+        put_state_rows(cache, saved)
     steps = []
     for i, lens in enumerate(plan):
         args = inputs(i, lens)
@@ -1803,20 +1828,26 @@ def decode_graph_check(model, reqs, gen):
             f"{cfg.name}: the fault step's shape is not the last step's")
     want = eager(args)
     g = graphs.graphs[tuple(args[2].shape)]
-    saved = mamba_rows(cache)
+    saved = state_rows(cache)
     g.replay()                          # no input refreshed
     faults = {"stale_inputs": rel_err(g.logits, want)}
-    put_mamba_rows(cache, saved)
+    put_state_rows(cache, saved)
     g.fill(*args)
-    g.inputs[1].copy_(torch.tensor(plan[-1], dtype=torch.int32,
-                                   device=DEVICE))
-    g.replay()                          # lens alone not refreshed
-    faults["stale_lens"] = rel_err(g.logits, want)
+    if any(blk.kind == "attn" for blk in model.layers):
+        g.inputs[1].copy_(torch.tensor(plan[-1], dtype=torch.int32,
+                                       device=DEVICE))
+        planted = "stale_lens"          # lens alone not refreshed
+    else:
+        # no layer reads lens: each sequence reads another's state row
+        g.inputs[3].copy_(g.inputs[3].roll(1))
+        planted = "rows_rolled"
+    g.replay()
+    faults[planted] = rel_err(g.logits, want)
     require(faults["stale_inputs"] > TOL_LOGITS, f"{cfg.name}: a replay of "
             f"stale inputs moves the logits by {faults}, within {TOL_LOGITS}")
-    require(faults["stale_lens"] > worst, f"{cfg.name}: a replay with stale "
-            f"lens moves the logits by {faults}, no more than the sound "
-            f"steps' {worst}")
+    require(faults[planted] > worst, f"{cfg.name}: the planted {planted} "
+            f"moves the logits by {faults}, no more than the sound steps' "
+            f"{worst}")
     del cache
     return {"steps": steps, "fault_rel_err": faults,
             "decode_graphs": graphs.stats()}
@@ -1908,7 +1939,7 @@ def granite_phase(gen):
     graph_phase(model, serving_requests(cfg), gen)
     launches["granite-8b-engine"] = engine_full(model, (summary, tokens))
     with timed("gateway"):
-        launches["granite-8b-gateway"] = gateway_phase(model)
+        launches["granite-8b-gateway"] = gateway_phase(model)[0]
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2047,6 +2078,312 @@ def archs_phase(gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: xLSTM-125M served; Qwen2-VL-72B and MusicGen-large through the
+# cells of launch/steps.py
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-125m"
+# (arch, the key of its kernel records in the result line)
+CELL_ARCHS = (("qwen2-vl-72b", "at_qwen2_vl"),
+              ("musicgen-large", "at_musicgen"))
+# the cells on one card, cut from the reference's shapes (``reduced``)
+CELL_PREFILL = ShapeConfig("prefill_32k", 2048, 1, "prefill")
+CELL_DECODE = ShapeConfig("decode_32k", 2048, 8, "decode")
+CELL_FUSED = dict(prefill_batch=1, prefill_seq=1024, decode_batch=8,
+                  decode_ctx=2048)
+CELL_DECODE_STEPS = 4          # the first captures, the other three replay
+CELL_SEED = 12
+# decode after a prefill against the full forward, max|d - f| / std(f):
+# the reference's own limit for bf16 models (tests/test_models.py)
+TOL_DECODE_VS_FORWARD = 0.25
+
+
+def decode_vs_forward(model, prompt, steps=1):
+    """The reference's decode check (``tests/test_models.py``) on the
+    card: ``prompt`` prefilled into a cache, then ``steps`` greedy decode
+    steps, each step's logits against ``forward``'s last position over
+    the prompt and the tokens fed so far; max|decode - forward| over the
+    forward's standard deviation, per step."""
+    cfg, page = model.cfg, SERVE["page"]
+    n = len(prompt)
+    blocks = kv_pages_for(n + steps, page)
+    cache = tf.init_cache(cfg, blocks, page, 1, device=DEVICE)
+    tab = torch.arange(blocks, device=DEVICE, dtype=torch.int32)[None]
+    slot = torch.zeros(1, device=DEVICE, dtype=torch.int64)
+    seq = torch.tensor(prompt[None], device=DEVICE)
+    logits, aux = tf.forward(model, seq, torch.arange(n, device=DEVICE)[None],
+                             return_aux=True, last_only=True)
+    tf.write_prefill_to_cache(cache, aux, tab, slot,
+                              window=cfg.sliding_window)
+    del aux
+    cur, errs, V = tf.greedy_sample(logits, cfg.vocab_size), [], \
+        cfg.vocab_size
+    for i in range(steps):
+        lens = torch.tensor([n + i], device=DEVICE, dtype=torch.int32)
+        d, _ = tf.decode_forward(model, cur, lens[:, None], cache, tab, lens,
+                                 slot)
+        seq = torch.cat([seq, cur], dim=1)
+        f = tf.forward(model, seq, torch.arange(n + i + 1, device=DEVICE)
+                       [None], return_aux=True, last_only=True)[0]
+        a, b = d[0, 0, :V].float(), f[0, 0, :V].float()
+        errs.append(((a - b).abs().max() / (b.std() + 1e-6)).item())
+        cur = tf.greedy_sample(d, V)
+    return errs
+
+
+def xlstm_phase(gen):
+    """Phase 12 (a): xLSTM-125M at every published width served through
+    ``serve_real`` and the engine path, which launch no kernel (the
+    reference has none for either mixer); the graph check (with rolled
+    state rows as its second fault) and the decode profile; the decode
+    step against the full forward, in bf16 and with float32 weights.
+    Returns the launch counts by path."""
+    cfg = get_one_card_config(XLSTM_ARCH)
+    require(not path_kernels(cfg), f"{cfg.name}: its path runs no kernel")
+    model = init_full(cfg)
+    reqs = serving_requests(cfg)
+    launches = {}
+    # no kernel on the path: the kernel-vs-plain logits would compare the
+    # plain path with itself
+    launches[cfg.name], summary, tokens = serve_full(model, reqs, pairs=())
+    graph_phase(model, reqs, gen)
+    launches[f"{cfg.name}-engine"] = engine_full(model, (summary, tokens),
+                                                 reqs)
+    # decode against forward, in bf16 and with float32 weights
+    prompt = min(reqs, key=lambda r: len(r.prompt)).prompt
+    errs = {"bfloat16": decode_vs_forward(model, prompt)}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = init_full(replace(cfg, dtype="float32"))
+    errs["float32"] = decode_vs_forward(model, prompt)
+    say("serve", phase="decode_vs_forward", config=cfg.name,
+        metric="max|decode-forward|/std(forward)",
+        limit=TOL_DECODE_VS_FORWARD, prompt_len=len(prompt), errs=errs)
+    require(max(map(max, errs.values())) < TOL_DECODE_VS_FORWARD,
+            f"{cfg.name}: decode and forward logits differ by {errs} of "
+            f"the forward's std")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cell_cuts(full, cut):
+    """The cuts of the reference's serving cells on one card."""
+    pool = SHAPES["decode_32k"].global_batch * SHAPES["decode_32k"].seq_len \
+        * cut.kv_bytes_per_token()
+    out = []
+    if cut.num_layers != full.num_layers:
+        out.append(f"layers {full.num_layers} -> {cut.num_layers} (bf16 "
+                   f"weights {2 * full.param_count() / 1e9:.2f} -> "
+                   f"{2 * cut.param_count() / 1e9:.2f} GB)")
+    p, d = SHAPES["prefill_32k"], SHAPES["decode_32k"]
+    f = CELL_FUSED
+    return out + [
+        f"prefill_32k: batch {p.global_batch} -> {CELL_PREFILL.global_batch}"
+        f", seq {p.seq_len} -> {CELL_PREFILL.seq_len}",
+        f"decode_32k: batch {d.global_batch} -> {CELL_DECODE.global_batch}, "
+        f"cache {d.seq_len} -> {CELL_DECODE.seq_len} tokens (the "
+        f"reference's pool: {pool / 1e9:.0f} GB at {cut.num_layers} layers)",
+        f"fused_pd: prefill 2 x 4096 -> {f['prefill_batch']} x "
+        f"{f['prefill_seq']}, decode 64 x 8192 -> {f['decode_batch']} x "
+        f"{f['decode_ctx']}"]
+
+
+def cell_phase(gen, arch, seed=CELL_SEED):
+    """Phase 12 (b) for one model (its one-card cut): the attention
+    kernels at its cells' shapes as in phase 10; then, with the counts
+    set to 0, its cells on the kernels: the prefill cell, four decode
+    steps through ``DecodeGraphs`` (fresh seeded inputs each; the first
+    captures) and the fused cell; then each against the same cell on the
+    plain versions (logits within TOL_LOGITS), each decode step against
+    the eager step from the same cache (bit-equal), a fresh step replayed
+    first (the K/V rows it writes and its logits the eager step's, bit
+    for bit), and under M-RoPE two planted faults: the fresh step
+    replayed with stale positions, and the prefill's streams swapped
+    (``mrope_faults``).  ``seed`` draws the decode lengths and every
+    input.  Returns (kernel records at its shapes, launch counts by
+    path)."""
+    full, cfg = get_config(arch), get_one_card_config(arch)
+    rng = np.random.default_rng(seed)
+    lens = sorted(rng.integers(CELL_DECODE.seq_len // 2,
+                               CELL_DECODE.seq_len - steps_mod.DECODE_ROOM
+                               + 1, size=CELL_DECODE.global_batch).tolist())
+    recs = check_main_path_shapes(gen, {
+        "prefill_S": CELL_PREFILL.seq_len, "decode_lens": lens,
+        "fused_S": CELL_FUSED["prefill_seq"], "fused_lens": lens,
+        "Hq": cfg.num_heads, "Hkv": cfg.num_kv_heads, "D": cfg.head_dim,
+        "page": steps_mod.PAGE})
+    say("kernels", phase="main_path_shapes", config=cfg.name,
+        G=cfg.num_heads // cfg.num_kv_heads, D=cfg.head_dim,
+        tolerance_bf16=TOL_BF16, tolerance_bf16_row=TOL_ROW, **recs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = init_full(cfg)
+    say("cells", phase="cut", config=cfg.name, reduced=cell_cuts(full, cfg),
+        frontend=cfg.frontend, rope_type=cfg.rope_type)
+    prefill = steps_mod.build_prefill_cell(model, CELL_PREFILL)
+    decode = steps_mod.build_decode_cell(model, CELL_DECODE)
+    fused = steps_mod.build_fused_pd_cell(model, f_decode=SERVE["f_decode"],
+                                          **CELL_FUSED)
+    p_args = prefill.materialize(seed, DEVICE)
+    d_args = decode.materialize(seed + 1, DEVICE)
+    f_args = fused.materialize(seed + 2, DEVICE)
+    for cell, args in ((prefill, p_args), (decode, d_args),
+                       (fused, f_args)):
+        require({k: (tuple(v.shape), v.dtype) for k, v in args.items()} ==
+                {k: (x.shape, x.dtype) for k, x in cell.args.items()},
+                f"{cfg.name}: the {cell.shape} cell drew other inputs than "
+                f"its specs")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    p_logits = prefill(**p_args)[0]
+    d_steps = steps_mod.decode_steps(decode, d_args, CELL_DECODE_STEPS,
+                                     seed)
+    fp_logits, _, fd_logits = fused(**f_args)
+    torch.cuda.synchronize()
+    launches = {f"{cfg.name}-cells": ops.launches()}
+    captured = decode.graphs.stats()
+    require((captured["graphs"], captured["replays"]) ==
+            (1, CELL_DECODE_STEPS - 1), f"{cfg.name}: the decode steps "
+            f"did not capture once and replay: {captured}")
+    launched = {k for k, n in launches[f"{cfg.name}-cells"].items() if n}
+    require(launched == path_kernels(cfg),
+            f"{cfg.name} cells: launched {sorted(launched)}, the path runs "
+            f"{sorted(path_kernels(cfg))}")
+    # the comparisons: each rewrites the K/V its step wrote, bit for bit
+    errs = {"prefill": rel_err(p_logits, tf.forward(
+        model, **p_args, impl="ref", last_only=True))}
+    graph = []
+    for i, (args, got) in enumerate(d_steps):
+        c = decode.cache
+        call = (model, args["inputs"], args["positions"], c.layers, c.tables,
+                args["seq_lens"], c.slots)
+        # the plain step first: it writes this step's K/V from its own
+        # hidden states; the eager kernel step then writes the kernel
+        # path's back, which the next step reads, as the replays did
+        errs[f"decode_step_{i}"] = rel_err(got, tf.decode_forward(
+            *call, impl="ref")[0])
+        eager = tf.decode_forward(*call)[0]
+        graph.append({"step": i, "ran": "capture" if i == 0 else "replay",
+                      "bit_equal": torch.equal(got, eager),
+                      "rel_err": rel_err(got, eager)})
+    # a fresh step, replayed first: the K/V rows it writes (layer 0's)
+    # must be the eager step's, and so must its logits; then a planted
+    # fault, the same step replayed with the first step's positions
+    args = d_steps[-1][0]
+    nxt = dict(args, positions=args["positions"] + 1,
+               seq_lens=args["seq_lens"] + 1)
+    rows = attn_mod.pool_rows(c.tables, nxt["seq_lens"][:, None], c.page)
+    k0 = next(x["k"] for x in c.layers if "k" in x)
+    k0 = k0.view(-1, *k0.shape[2:])
+    before = k0[rows].clone()
+    replayed = decode(**nxt).clone()
+    after = k0[rows].clone()
+    eager = tf.decode_forward(model, nxt["inputs"], nxt["positions"],
+                              c.layers, c.tables, nxt["seq_lens"],
+                              c.slots)[0]
+    fresh = {"replay_wrote_rows": not torch.equal(before, after),
+             "rows_equal_eager": torch.equal(after, k0[rows]),
+             "bit_equal": torch.equal(replayed, eager)}
+    g = next(iter(decode.graphs.graphs.values()))
+    g.fill(nxt["inputs"], nxt["seq_lens"], c.tables, c.slots,
+           d_steps[0][0]["positions"])
+    g.replay()
+    fresh["stale_positions_rel_err"] = rel_err(g.logits, eager)
+    c = fused.cache
+    ref_p, _, ref_d, _ = tf.fused_pd_forward(
+        model, f_args["p_inputs"], f_args["p_positions"], f_args["d_inputs"],
+        f_args["d_positions"], c.layers, c.tables, f_args["seq_lens"],
+        c.slots, impl="ref")
+    errs["fused_prefill"] = rel_err(fp_logits, ref_p)
+    errs["fused_decode"] = rel_err(fd_logits, ref_d)
+    # a whole step's launches outnumber the launch queue: host_ms, from an
+    # idle card to the step's end; one replayed graph: time_ms
+    times = {"prefill_ms": host_ms(lambda: prefill(**p_args)),
+             "prefill_plain_ms": host_ms(lambda: tf.forward(
+                 model, **p_args, impl="ref", last_only=True), 1),
+             "decode_step_graph_ms": time_ms(
+                 lambda: decode(**d_steps[-1][0]), 10),
+             "fused_ms": host_ms(lambda: fused(**f_args))}
+    say("cells", phase="kernel_vs_plain", config=cfg.name,
+        metric="max|kernel-plain|/max|plain|", limit=TOL_LOGITS, **errs,
+        seed=seed, graph_vs_eager=graph, fresh_step=fresh,
+        decode_graphs=captured, seq_lens=d_args["seq_lens"]
+        .tolist(), launches=launches[f"{cfg.name}-cells"], **times)
+    require(all(e < TOL_LOGITS for e in errs.values()),
+            f"{cfg.name}: cells differ between kernel and plain: {errs}")
+    require(all(g["bit_equal"] for g in graph) and fresh["bit_equal"] and
+            fresh["replay_wrote_rows"] and fresh["rows_equal_eager"],
+            f"{cfg.name}: a replayed decode step differs from eager: "
+            f"{graph}, {fresh}")
+    require(cfg.rope_type == "none" or
+            fresh["stale_positions_rel_err"] > TOL_LOGITS,
+            f"{cfg.name}: a replay of stale positions moves the logits by "
+            f"{fresh}, within {TOL_LOGITS}")
+    del decode, fused, d_steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.rope_type == "mrope":
+        say("cells", phase="mrope_faults", config=cfg.name,
+            **mrope_faults(model, p_args))
+    del model, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
+def mrope_faults(model, args):
+    """Planted faults in the prefill cell's 3-D positions, on the kernel
+    path, against its own logits at every position: the h and w streams
+    swapped, and the t and h streams swapped.  Under M-RoPE's sections
+    (2, 1, 1) the t stream turns the highest frequencies of the rotary
+    half and h and w the lowest (theta^(-1/2) and below), so an image
+    token's h/w swap turns its keys and queries by at most (g - 1) x
+    1e-3 rad (g the grid's side): the logits move, by little.  The h/w
+    swap must move them at all (the kernel path is deterministic: a port
+    that dropped the h or w stream would give the same bits); the t/h
+    swap must move them past TOL_LOGITS."""
+    cfg = model.cfg
+    want = tf.forward(model, **args)
+    out = {}
+    for name, order in (("h_w_swapped", [0, 2, 1]),
+                        ("t_h_swapped", [1, 0, 2])):
+        got = tf.forward(model, args["inputs"],
+                         args["positions"][..., order].contiguous())
+        out[name] = {"rel_err": rel_err(got, want),
+                     "last_position_rel_err": rel_err(got[:, -1], want[:, -1]),
+                     "bit_equal": torch.equal(got, want)}
+        del got
+    a, g = steps_mod.mrope_layout(args["positions"].shape[1])
+    out.update(limit=TOL_LOGITS, image_grid=[g, g], text_prefix=a,
+               metric="max|fault-sound|/max|sound|, every position")
+    require(not out["h_w_swapped"]["bit_equal"], f"{cfg.name}: swapping the "
+            f"h and w streams changes no logit: {out}")
+    require(out["t_h_swapped"]["rel_err"] > TOL_LOGITS, f"{cfg.name}: "
+            f"swapping the t and h streams moves the logits by {out}, within "
+            f"{TOL_LOGITS}")
+    return out
+
+
+def cells_phase(gen, seeds=(CELL_SEED,)):
+    """Phase 12: xLSTM-125M, then the two embedding-input models' cells
+    once for each of ``seeds``, each model freed before the next loads.
+    Returns {record key: kernel records} and the launch counts by path
+    (of the last seed)."""
+    with timed(XLSTM_ARCH):
+        launches = xlstm_phase(gen)
+    recs = {}
+    for seed in seeds:
+        for arch, key in CELL_ARCHS:
+            with timed(arch):
+                recs[key], by_path = cell_phase(gen, arch, seed)
+            launches.update(by_path)
+    return recs, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the online gateway and its HTTP server, on granite-8b
 # ---------------------------------------------------------------------------
 
@@ -2141,7 +2478,209 @@ def stats_ms(xs):
             "p95": float(np.percentile(xs, 95)) * 1e3} if xs else None
 
 
-def gateway_phase(model):
+class LoopTrace:
+    """What holds the event loop's thread while phase 9 serves (ROADMAP
+    C8), on ``time.perf_counter``: every callback the loop runs (asyncio's
+    ``Handle._run``: the engine's lane completions with the plans they
+    launch, the HTTP handlers' task steps, IO callbacks), every wait in
+    its selector (with the timeout it was given), every collection of the
+    garbage collector (its generation and thread), and the health
+    monitor's polls.  Each callback and wait also takes, over its span,
+    the loop thread's CPU time (``time.thread_time``), the process's
+    (``time.process_time``) and the thread's run delay, its time runnable
+    but off a core (``/proc/<tid>/schedstat``, Linux): of a callback's
+    wall time, what its own code ran, what it waited for a core, and the
+    rest, asleep (for the GIL or in a blocking call).  ``report``
+    attributes the stamp lag of each late TokenEvent (its lane's end to
+    its stamp) to them."""
+
+    def __init__(self):
+        self.handles, self.selects, self.gcs, self.polls = [], [], [], []
+        self._undo = []
+        self._gc_at = {}
+        self._sched = None
+
+    @staticmethod
+    def _name(handle):
+        cb = handle._callback
+        task = getattr(cb, "__self__", None)
+        if isinstance(task, asyncio.Task):
+            return "task " + task.get_coro().__qualname__
+        return getattr(cb, "__qualname__", type(cb).__name__)
+
+    def _clocks(self):
+        """The loop thread's CPU time, the process's, and the thread's run
+        delay (s; 0 where the kernel keeps no schedstat)."""
+        delay = (int(os.pread(self._sched, 128, 0).split()[1]) * 1e-9
+                 if self._sched is not None else 0.0)
+        return time.thread_time(), time.process_time(), delay
+
+    def _since(self, c0):
+        """(own CPU, other threads' CPU, run delay) since ``_clocks``
+        gave ``c0``."""
+        c1 = self._clocks()
+        own = c1[0] - c0[0]
+        return own, (c1[1] - c0[1]) - own, c1[2] - c0[2]
+
+    def install(self):
+        """Before the loop starts, on its thread: the callback and
+        collector hooks."""
+        run, trace = asyncio.events.Handle._run, self
+        try:
+            self._sched = os.open(
+                f"/proc/self/task/{threading.get_native_id()}/schedstat",
+                os.O_RDONLY)
+            self._undo.append(lambda: os.close(self._sched))
+        except OSError:
+            self._sched = None
+
+        def timed_run(handle):
+            t0, c0 = time.perf_counter(), trace._clocks()
+            try:
+                return run(handle)
+            finally:
+                t1 = time.perf_counter()
+                long = t1 - t0 > 5e-4
+                trace.handles.append(
+                    (t0, t1, trace._name(handle) if long else None,
+                     trace._since(c0) if long else None))
+
+        def on_gc(phase, info):
+            now = time.perf_counter()
+            tid = threading.get_ident()
+            if phase == "start":
+                self._gc_at[tid] = now
+            elif tid in self._gc_at:
+                self.gcs.append((self._gc_at.pop(tid), now,
+                                 info["generation"],
+                                 threading.current_thread().name))
+
+        asyncio.events.Handle._run = timed_run
+        gc.callbacks.append(on_gc)
+        self._undo += [lambda: setattr(asyncio.events.Handle, "_run", run),
+                       lambda: gc.callbacks.remove(on_gc)]
+
+    def attach(self, loop):
+        """Inside the running loop: its selector's waits."""
+        sel = loop._selector
+        select = sel.select
+
+        def timed_select(timeout=None):
+            t0, c0 = time.perf_counter(), self._clocks()
+            ready = select(timeout)
+            self.selects.append((t0, timeout, time.perf_counter(),
+                                 self._since(c0)[2]))
+            return ready
+
+        sel.select = timed_select
+
+    def remove(self):
+        for undo in reversed(self._undo):
+            undo()
+        self._undo = []
+
+    def report(self, windows, lags, offset, limit, plans):
+        """For the TokenEvents whose net lag passes ``limit``: where the
+        loop thread's time went between each lane's end and the stamp,
+        outside the ``plans`` (host spans of the plans, which the net lag
+        takes off), summed over them (seconds): callbacks by name, waits
+        in the selector, how far each overslept its timeout and the run
+        delay in them, collections on the loop's thread and on others,
+        health polls in flight, and time in none of them (the loop's own
+        code); the callbacks of 0.5 ms and more there split into the loop
+        thread's CPU time, its run delay and the rest (asleep), beside the
+        process's other threads' CPU time over them; and the longest
+        single callbacks there (ms: wall, own CPU, run delay, other
+        threads' CPU)."""
+        late = sorted({(a - offset, b - offset) for (a, b), x in
+                       zip(windows, lags) if x > limit})
+        plans = sorted(plans)
+
+        def free(a, b):
+            """[a, b] less the plans' spans."""
+            out, t = [], a
+            for p0, p1 in plans:
+                if p1 <= t or p0 >= b:
+                    continue
+                if p0 > t:
+                    out.append((t, p0))
+                t = max(t, p1)
+            if t < b:
+                out.append((t, b))
+            return out
+
+        def overlap(segs, t0, t1):
+            return sum(max(0.0, min(b, t1) - max(a, t0)) for a, b in segs)
+
+        def within(entries, starts, a, b):
+            """The entries (sequential on one thread, by start) that
+            overlap [a, b]."""
+            i = max(0, bisect.bisect_right(starts, a) - 1)
+            j = bisect.bisect_right(starts, b)
+            return entries[i:j]
+
+        handle_at = [h[0] for h in self.handles]
+        select_at = [x[0] for x in self.selects]
+        by_name, out = collections.Counter(), collections.Counter()
+        split = collections.Counter()
+        longest = []
+        main = threading.main_thread().name
+        for a, b in late:
+            segs = free(a, b)
+            length = sum(y - x for x, y in segs)
+            out["net_window"] += length
+            covered = 0.0
+            for t0, t1, name, cpu in within(self.handles, handle_at, a, b):
+                o = overlap(segs, t0, t1)
+                by_name[name or "short (< 0.5 ms)"] += o
+                covered += o
+                if cpu is None or o == 0.0:
+                    continue
+                # a callback's parts, in the share of it that the window
+                # holds
+                own, others, delay = (x * o / (t1 - t0) for x in cpu)
+                split["wall"] += o
+                split["own_cpu"] += own
+                split["run_delay"] += delay
+                split["asleep"] += o - own - delay
+                split["other_threads_cpu"] += others
+                if o > 5e-4:
+                    longest.append((o * 1e3, name, own * 1e3, delay * 1e3,
+                                    others * 1e3))
+            for t0, timeout, t1, delay in within(self.selects, select_at,
+                                                 a, b):
+                o = overlap(segs, t0, t1)
+                out["selector_wait"] += o
+                covered += o
+                if timeout is not None:
+                    past = overlap(segs, t0 + timeout, t1)
+                    out["selector_past_timeout"] += past
+                    if past:
+                        out["selector_run_delay"] += delay
+            for t0, t1, _, thread in self.gcs:
+                out["gc_loop_thread" if thread == main else
+                    "gc_other_threads"] += overlap(segs, t0, t1)
+            for t0, t1 in self.polls:
+                out["healthz_poll_in_flight"] += overlap(segs, t0, t1)
+            out["in_none"] += length - covered
+        gens = collections.Counter(g for *_, g, _t in self.gcs)
+        return {"late_tokens": sum(x > limit for x in lags),
+                "late_windows": len(late),
+                "seconds_net_of_plans": dict(out),
+                "callbacks_s": dict(by_name.most_common(12)),
+                "long_callbacks_s": dict(split),
+                "longest_callbacks_ms": sorted(longest, reverse=True)[:12],
+                "gc_collections_by_generation": dict(gens),
+                "gc_longest_ms": max(((t1 - t0) * 1e3 for t0, t1, *_ in
+                                      self.gcs), default=0.0),
+                "callbacks": len(self.handles),
+                "run_s": self.handles[-1][1] - self.handles[0][0]
+                if self.handles else None,
+                "selects": len(self.selects),
+                "run_delay_kept": self._sched is not None}
+
+
+def gateway_phase(model, loop_trace=None):
     """Phase 9: ``GatewayHTTPServer`` in this process on 127.0.0.1, over
     one RAPID worker (``RapidEngine`` + ``KernelExecutor`` with the pool
     the scheduler sizes from ``H100``) on ``RealTimeClock``, driven by
@@ -2149,7 +2688,9 @@ def gateway_phase(model):
     arrivals, a client that disconnects, and one that stops reading until
     its stream is paused.  The objects of the earlier phases are frozen
     out of the garbage collector's walks while it serves, as a server does
-    after its warm-up.  Returns the kernel launches of the run."""
+    after its warm-up.  ``loop_trace`` (a ``LoopTrace``) records what
+    holds the loop's thread.  Returns the kernel launches of the run and
+    the stamp lags' p99 and max (ms, net of plans)."""
     cfg = model.cfg
     t_phase = time.perf_counter()
     gc.collect()
@@ -2199,6 +2740,8 @@ def gateway_phase(model):
 
     async def main():
         loop = asyncio.get_running_loop()
+        if loop_trace is not None:
+            loop_trace.attach(loop)
         loop.set_exception_handler(
             lambda lp, ctx: errors.append(str(ctx.get("exception") or
                                               ctx.get("message"))))
@@ -2225,10 +2768,13 @@ def gateway_phase(model):
 
         def monitor():
             while not done.is_set():
+                t = time.perf_counter()
                 try:
                     health.append(http_get(port, "/healthz"))
                 except Exception as e:  # noqa: BLE001
                     health.append((0, repr(e)))
+                if loop_trace is not None:
+                    loop_trace.polls.append((t, time.perf_counter()))
                 time.sleep(0.25)
 
         mon = threading.Thread(target=monitor, daemon=True)
@@ -2253,9 +2799,13 @@ def gateway_phase(model):
     torch.cuda.synchronize()
     gc.collect()
     gc.freeze()
+    if loop_trace is not None:
+        loop_trace.install()
     try:
         clients, cancel, slow, launches, metrics = asyncio.run(main())
     finally:
+        if loop_trace is not None:
+            loop_trace.remove()
         gc.unfreeze()
     torch.cuda.synchronize()
     served_s = time.perf_counter() - t_phase
@@ -2276,8 +2826,11 @@ def gateway_phase(model):
     resumed = [e for e in ex.log if e["resumed"]]
     launched = {k for k, n in launches.items() if n > 0}
     states = [h[1]["workers"] if h[0] == 200 else h for h in health]
+    windows, plans = [], collections.defaultdict(list)
     raw, net = serve_engine.token_stamp_lags(ex.log, eng.stream.events(),
-                                             offset[0])
+                                             offset[0], windows)
+    for e in ex.log:
+        plans[e["plan"]].append(e)
     # how far each lane was due after the end of the launch before it
     # fired (the double wait would put it a whole launch after)
     ends = sorted(e["host_end"] + offset[0] for e in ex.log)
@@ -2329,6 +2882,13 @@ def gateway_phase(model):
         if raw else None, lanes=len(lanes),
         lane_due_after_launch_end_ms_max=max(due_after) * 1e3
         if due_after else None)
+    if loop_trace is not None:
+        say("gateway", phase="loop_trace", config=cfg.name,
+            limit_ms=serve_engine.STAMP_P99_S * 1e3,
+            **loop_trace.report(
+                windows, net, offset[0], serve_engine.STAMP_P99_S,
+                [(min(e["t_start"] for e in es) - offset[0],
+                  max(e["host_end"] for e in es)) for es in plans.values()]))
     for rid, c in streams.items():
         require(c.lines[-1]["type"] == "finished",
                 f"gateway: request {rid}'s stream ended in {c.lines[-1]}")
@@ -2397,7 +2957,8 @@ def gateway_phase(model):
             "equal_uninterrupted": got == alone,
             "first_difference_at": first_diff},
         seconds=time.perf_counter() - t)
-    return launches
+    return launches, {"p99_net_ms": float(np.percentile(net, 99)) * 1e3,
+                      "max_net_ms": max(net) * 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -2692,7 +3253,38 @@ def timed(phase):
     say("time", phase=phase, seconds=time.perf_counter() - t)
 
 
-def main():
+def gateway_runs(runs):
+    """``--gateway-runs``: phase 9 alone, ``runs`` times in a row on one
+    granite-8b (after phase 4's serving run, as in the whole smoke), each
+    under a ``LoopTrace``.  A run that fails is reported and the next one
+    starts.  Returns each run's stamp lags (ms) or its failure."""
+    model = init_full(get_config("granite-8b"))
+    serve_full(model)
+    out = []
+    for i in range(runs):
+        with timed(f"gateway run {i}"):
+            try:
+                r = gateway_phase(model, LoopTrace())[1]
+            except PhaseFailed as e:
+                r = {"failed": str(e)}
+        out.append(r)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one GPU (every phase, with no options).")
+    ap.add_argument("--gateway-runs", type=int, default=0,
+                    help="run only phase 9, this many times, each traced "
+                    "(``LoopTrace``), and print each run's stamp lags")
+    ap.add_argument("--only-cells", nargs="?", const=str(CELL_SEED),
+                    metavar="SEEDS",
+                    help="run only phase 12 (after the build); with "
+                    "comma-separated seeds, its cells once per seed")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2716,6 +3308,18 @@ def main():
             ptxas=build.ptxas_report())
 
         gen = torch.Generator(device=DEVICE).manual_seed(0)
+        if args.gateway_runs:
+            runs = gateway_runs(args.gateway_runs)
+            say("gateway", phase="runs", card=card, stamp_lags=runs,
+                p99_net_ms=[r.get("p99_net_ms") for r in runs])
+            return 1 if any("failed" in r for r in runs) else 0
+        if args.only_cells:
+            with timed("cells"):
+                recs, launches = cells_phase(gen, [
+                    int(x) for x in args.only_cells.split(",")])
+            say("cells", phase="only", launches=launches,
+                kernels=list(recs))
+            return 0
         with timed("kernels"):
             worst_f32, worst_bf16, recs = kernels_phase(gen)
         with timed("granite-8b"):
@@ -2735,6 +3339,11 @@ def main():
         torch.cuda.empty_cache()
         with timed("train"):
             launches.update(train_phase(card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        with timed("cells"):
+            cells_attn, cells_launches = cells_phase(gen)
+        launches.update(cells_launches)
         say("time", phase="total", seconds=time.perf_counter() - t_start)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -2776,7 +3385,7 @@ def main():
                 kernels[-1][k] = r[k]
         for key, at in (("at_jamba_shapes", jamba_attn),
                         ("at_mixtral_shapes", mixtral_attn),
-                        *archs_attn.items()):
+                        *archs_attn.items(), *cells_attn.items()):
             if name in at:
                 kernels[-1][key] = {
                     k: at[name][k] for k in (

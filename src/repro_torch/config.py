@@ -1,7 +1,7 @@
 """Model and serving configuration for the port: the ``ModelConfig``
 fields and the helpers the ported modules and the perfmodel read, the
-serving engine's ``SLOConfig`` and ``ServeConfig``, and the architecture
-registry.
+serving engine's ``SLOConfig`` and ``ServeConfig``, the cells' input
+shapes (``ShapeConfig``, ``SHAPES``), and the architecture registry.
 
 A copy of the parts of ``repro/config.py`` the port needs, with the
 MoE, Mamba and xLSTM sub-configs.
@@ -252,6 +252,22 @@ class ModelConfig:
             elif mx == "slstm":
                 total += 4 * self.d_model * dtype_bytes
         return total
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode | long_decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "long_decode"),
+}
 
 
 @dataclass(frozen=True)

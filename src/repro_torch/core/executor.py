@@ -295,16 +295,17 @@ class KernelExecutor(Executor):
     token ``tokens_generated``.  ``reprefills_context`` tells the engine
     so: its scheduler admits, and it allocates, such a request for its
     ``context_len`` (``Scheduler.kv_tokens``), not its prompt alone.  A
-    Mamba row starts again from zero state, as any prefill does.
+    recurrent row starts again from zero state, as any prefill does.
 
-    Mamba state rows.  A request holds a row from its prefill until it
-    leaves the engine: its ``FinishedEvent``, or the ``preempted`` phase
-    of an eviction (also while it waits to join the decode batch, which
-    ``max_batch_slots`` does not bound).  ``state_rows`` defaults to the
-    engine's KV block count, which a request holding a row holds one of:
-    free for a model without Mamba layers, whose rows hold nothing; a
-    model with them passes fewer.  Running out of rows raises, and a live
-    row is never overwritten.
+    Recurrent state rows (Mamba, mLSTM, sLSTM).  A request holds a row
+    from its prefill until it leaves the engine: its ``FinishedEvent``,
+    or the ``preempted`` phase of an eviction (also while it waits to
+    join the decode batch, which ``max_batch_slots`` does not bound).
+    ``state_rows`` defaults to the engine's KV block count, which a
+    request holding a row holds one of: free for a model without
+    recurrent layers, whose rows hold nothing; a model with them passes
+    fewer (an xLSTM-125M row is 19 MB).  Running out of rows raises, and
+    a live row is never overwritten.
 
     What it does not run raises ``NotImplementedError``: hybrid plans,
     split-pool engines and their KV transfers (disagg), what-if
@@ -325,7 +326,6 @@ class KernelExecutor(Executor):
     def __init__(self, model, *, prompts, serve, device,
                  hw: HardwareSpec = H100, state_rows: Optional[int] = None,
                  tokens: Optional[Dict[int, List[int]]] = None):
-        tf.check_decodable(model.cfg)
         self.model = model
         self.cfg = model.cfg
         self.serve = serve

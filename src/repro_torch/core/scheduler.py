@@ -47,9 +47,21 @@ from repro_torch.perfmodel import costs as C
 from repro_torch.perfmodel.hw import TPU_V5E, HardwareSpec
 
 
+# the most sequences a pool of a model without attention layers holds
+MAX_STATE_SEQS = 1024
+
+
 def kv_pool_blocks(cfg, hw: HardwareSpec, chips: int, page_size: int,
-                   reserve_frac: float = 0.05) -> int:
-    """Pool size: chip-group HBM minus weights, minus activation reserve."""
+                   reserve_frac: float = 0.05,
+                   max_seq_len: int = 32_768) -> int:
+    """Pool size: chip-group HBM minus weights, minus activation reserve.
+
+    A model without attention layers (xLSTM) caches no K/V: its blocks
+    only count tokens, and what a request holds is its float32 state row.
+    Its pool holds as many sequences of ``max_seq_len`` tokens as state
+    rows fit the free memory, at most ``MAX_STATE_SEQS`` (the blocks are
+    entries of a host list), where the reference divides by its zero
+    bytes a token and has no pool for such a model."""
     total = chips * hw.hbm_bytes * (1.0 - reserve_frac)
     weights = C.weight_bytes(cfg)
     free = total - weights
@@ -58,6 +70,9 @@ def kv_pool_blocks(cfg, hw: HardwareSpec, chips: int, page_size: int,
             f"{cfg.name}: weights ({weights/2**30:.0f} GiB) exceed "
             f"{chips}x{hw.hbm_bytes/2**30:.0f} GiB; increase chips")
     per_block = page_size * cfg.kv_bytes_per_token()
+    if per_block == 0:
+        rows = min(int(free // cfg.state_bytes_per_seq(4)), MAX_STATE_SEQS)
+        return max(64, rows * kv_pages_for(max_seq_len, page_size))
     return max(64, int(free // per_block))
 
 
@@ -229,7 +244,8 @@ class Scheduler:
     def pool_blocks(self, cfg, serve, hw: HardwareSpec) -> Dict[str, int]:
         return {"decode": kv_pool_blocks(cfg, hw, serve.chips,
                                          serve.page_size,
-                                         serve.kv_reserve_frac)}
+                                         serve.kv_reserve_frac,
+                                         serve.max_seq_len)}
 
     def lane_chips(self, serve) -> Dict[str, int]:
         return {lane: serve.chips for lane in self.lanes}

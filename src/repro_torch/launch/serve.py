@@ -21,7 +21,9 @@ step blocks the event loop for its whole launch, and the first launches'
 builds would outlast the gateway's heartbeat timeout.  A body with
 ``cached_prefix_len`` > 0 is refused, and so is ``--checkpoint-interval``
 > 0 at start-up (both need a prefill after a cached prefix, ROADMAP A5),
-and so is a model with Mamba layers (its state rows, ROADMAP A11).
+and so is a model with recurrent layers, Mamba or xLSTM (its state rows,
+ROADMAP A11).  Both modes refuse a model that takes no tokens
+(``embed_stub``; ``serve_real.check_tokens``) before it loads.
 
 The requests: with ``--trace`` (lmsys, arxiv or loogle) those of the
 reference's synthetic trace at ``--qps`` for ``--duration`` seconds
@@ -113,6 +115,7 @@ def serve_engine(model, requests: List[serve_real.Request],
     if serve.mode != "rapid":
         raise NotImplementedError(f"mode {serve.mode!r}: the port serves "
                                   "the rapid engine only")
+    serve_real.check_tokens(model.cfg)
     dev = model.tok.device
     ex = KernelExecutor(model, prompts={r.rid: r.prompt for r in requests},
                         serve=serve, device=dev, hw=hw,
@@ -205,19 +208,22 @@ def kernel_engines(model, prompts: Mapping, tokens: Dict[int, List[int]]):
 def check_online(cfg, checkpoint_interval: int = 0) -> None:
     """Raise ``NotImplementedError`` for what the online server does not
     run on the card: the gateway's KV checkpoints, which would resume a
-    request after a cached prefix (ROADMAP A5); and a model with Mamba
-    layers, whose requests each hold a state row from their prefill on,
-    which no admission bounds yet (ROADMAP A11)."""
+    request after a cached prefix (ROADMAP A5); and a model with
+    recurrent layers (Mamba, mLSTM, sLSTM), whose requests each hold a
+    state row from their prefill on, which no admission bounds yet
+    (ROADMAP A11)."""
     if checkpoint_interval > 0:
         raise NotImplementedError(
             "checkpoint_interval > 0: resuming from a KV checkpoint is a "
             "prefill after a cached prefix, not run on the card yet "
             "(ROADMAP A5)")
-    if "mamba" in cfg.layer_pattern:
+    recurrent = sorted(set(cfg.layer_pattern) & {"mamba", "mlstm", "slstm"})
+    if recurrent:
         raise NotImplementedError(
-            f"{cfg.name}: the online server does not serve Mamba layers "
-            f"yet: each request holds a state row from its prefill on, "
-            f"and no admission bounds the rows (ROADMAP A11)")
+            f"{cfg.name}: the online server does not serve recurrent "
+            f"layers ({', '.join(recurrent)}) yet: each request holds a "
+            f"state row from its prefill on, and no admission bounds the "
+            f"rows (ROADMAP A11)")
 
 
 def make_gateway(model, serve: ServeConfig, prompts: Mapping, *, clock,
@@ -282,7 +288,8 @@ STAMP_P99_S = 5e-3
 STAMP_MAX_S = 30e-3
 
 
-def token_stamp_lags(log, events, offset: float
+def token_stamp_lags(log, events, offset: float,
+                     windows: Optional[list] = None
                      ) -> "tuple[List[float], List[float]]":
     """For each ``TokenEvent`` in ``events``: how long after its lane's
     end it was stamped, on the gateway's clock (``offset``: its time less
@@ -292,7 +299,8 @@ def token_stamp_lags(log, events, offset: float
     net of the time the host thread spent in between on plans (from the
     engine's view of each to its last launch's end: it was busy
     scheduling and launching, its own plan's later launches included, not
-    waiting)."""
+    waiting).  ``windows``, if given, receives each lag's (lane end,
+    stamp) on the gateway's clock."""
     plans = collections.defaultdict(list)
     for e in log:
         plans[e["plan"]].append(e)
@@ -316,6 +324,8 @@ def token_stamp_lags(log, events, offset: float
                       for a, b in span.values())
         raw.append(ev.t - lane_end)
         net.append(ev.t - lane_end - between)
+        if windows is not None:
+            windows.append((lane_end, ev.t))
     return raw, net
 
 
@@ -450,11 +460,12 @@ def main(argv=None):
         get_reduced_config(args.arch)
     if args.dtype:
         cfg = replace(cfg, dtype=args.dtype)
-    if args.serve == "http":
-        try:
+    try:
+        serve_real.check_tokens(cfg)
+        if args.serve == "http":
             check_online(cfg, args.checkpoint_interval)
-        except NotImplementedError as e:
-            ap.error(str(e))
+    except NotImplementedError as e:
+        ap.error(str(e))
 
     device = serve_real.resolve_device(args.device)
     hw = H100 if device.type == "cuda" else \

@@ -5,9 +5,15 @@ concurrent prefill+decode step — with per-request TTFT and ITL on the
 wall clock.
 
 A request holds one decode slot from admission to its last token; the
-slot is also the row of its recurrent state in every Mamba layer.  A
-step prefills at most one prompt, unpadded: padding a batch of prompts
-would run the Mamba scan over the padding and corrupt the final state.
+slot is also the row of its recurrent state in every Mamba, mLSTM and
+sLSTM layer.  A step prefills at most one prompt, unpadded: padding a
+batch of prompts would run the recurrent scans over the padding and
+corrupt the final state.
+
+The requests are tokens.  A model whose frontend takes embeddings
+(``embed_stub``: qwen2-vl-72b, musicgen-large) is refused by name before
+it loads: the reference runs those only through the cells of
+``launch/steps.py``, which draw stub embeddings and positions.
 
 Each step is one of three kinds:
   * fused   — a waiting prompt and active decode slots: ``fused_pd_forward``
@@ -77,6 +83,15 @@ def make_requests(cfg, n: int, seed: int, prompt_range=(6, 24),
     return out
 
 
+def check_tokens(cfg) -> None:
+    """Raise for a model that takes no tokens (``embed_stub``)."""
+    if cfg.frontend != "token":
+        raise NotImplementedError(
+            f"{cfg.name}: frontend {cfg.frontend!r} takes embeddings, not "
+            f"tokens; the serving entry points take tokens, and the model "
+            f"runs through launch/steps.py's cells (stub inputs)")
+
+
 def resolve_device(device: Optional[str]) -> torch.device:
     """``cuda`` unless the caller asks for the CPU; no silent fallback."""
     if device is None or device.startswith("cuda"):
@@ -97,6 +112,7 @@ def serve(model, requests: List[Request], *, slots: int = SLOTS,
     sliding window a request holds blocks for its whole context, and its
     block table is the ring of its first W / page blocks."""
     cfg = model.cfg
+    check_tokens(cfg)
     window = cfg.sliding_window
     dev, dtype = model.tok.device, model.tok.dtype
     max_ctx = max(len(r.prompt) + r.max_new for r in requests)
@@ -242,6 +258,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_one_card_config(args.arch) if args.full else \
         get_reduced_config(args.arch)
+    try:
+        check_tokens(cfg)
+    except NotImplementedError as e:
+        ap.error(str(e))
     if args.dtype:
         cfg = replace(cfg, dtype=args.dtype)
     model = init_model(cfg, seed=args.seed, device=device)

@@ -27,7 +27,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import ParamInit, apply_rope, rope_cos_sin
+from repro_torch.models.layers import (ParamInit, apply_rope, mrope_cos_sin,
+                                       rope_cos_sin)
 
 IMPLS = ("kernel", "ref")
 
@@ -65,13 +66,16 @@ def _qkv(p: Attention, cfg, x):
 
 
 def _rope(cfg, q, k, positions):
-    """positions: the leading dims of q/k without the head dims."""
+    """positions: the leading dims of q/k without the head dims, and for
+    M-RoPE a last axis of 3 (the t, h, w streams)."""
     if cfg.rope_type == "none":
         return q, k
-    if cfg.rope_type != "rope":
-        raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not "
-                                  "ported yet")
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.rope_type == "mrope":
+        cos, sin = mrope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    elif cfg.rope_type == "rope":
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    else:
+        raise ValueError(f"no such rope_type {cfg.rope_type!r}")
     return (apply_rope(q, cos, sin).to(q.dtype),
             apply_rope(k, cos, sin).to(k.dtype))
 
@@ -158,11 +162,12 @@ def decode_attention(p: Attention, cfg, x, positions, k_pages, v_pages,
                      block_tables, seq_lens, *, impl: str = "kernel"):
     """One-token decode step over the paged pool.
 
-    x (B, 1, d); positions (B, 1); k/v_pages (N, page, Hkv, D);
-    block_tables (B, max_pages) int32 (ring tables under a window);
-    seq_lens (B,) int32 = tokens already cached.  The new token's K/V is
-    written at position seq_lens (ring slot seq_lens % W) BEFORE
-    attention, which then covers seq_lens + 1 tokens (at most W).
+    x (B, 1, d); positions (B, 1) or (B, 1, 3); k/v_pages (N, page,
+    Hkv, D); block_tables (B, max_pages) int32 (ring tables under a
+    window); seq_lens (B,) int32 = tokens already cached.  The new
+    token's K/V is written at position seq_lens (ring slot seq_lens % W),
+    never at a position id, BEFORE attention, which then covers
+    seq_lens + 1 tokens (at most W).
     Returns out (B, 1, d); the pools are updated in place.
     """
     check_impl(impl)

@@ -3,7 +3,8 @@ counterpart of the reference's ``jax.jit(decode_forward)``
 (``examples/serve_real.py:55``).
 
 ``DecodeGraphs(model, cache, max_batch=...)`` holds one CUDA graph of
-``decode_forward`` + ``greedy_sample`` per (batch size, table width),
+``decode_forward`` + ``greedy_sample`` per (batch size, table width) (and
+the shape of explicit positions, where a caller gives them),
 captured with ``torch.cuda.graph`` at the first step of that shape, as
 ``jax.jit`` compiles at its first call, and replayed at every later step
 of that shape.  All its graphs share one memory pool.
@@ -16,8 +17,13 @@ What a graph needs of the step, and how it holds:
     ``table_width`` rounds a batch's widest table up to whole key splits,
     so that few widths occur and none adds a split that reads no key.
   * A graph's inputs are static tensors, filled with ``copy_`` before
-    each replay.  The KV pools and the Mamba state rows are updated in
-    place by the replay, as by the eager step.
+    each replay: tokens (B,1), or an ``embed_stub`` model's embeddings
+    (B,1,d); the cached lengths, block tables and state rows; and the
+    positions, (B,1) or M-RoPE's (B,1,3), where the caller gives them (by
+    default a step's positions are its cached lengths, computed inside
+    the graph).  The KV pools and the recurrent state rows (Mamba, mLSTM,
+    sLSTM) are gathered and updated in place by the replay, as by the
+    eager step.
   * ``paged_attention`` keeps arrival counters per stream and replaces a
     stream's buffer when a larger one is asked for.  The capture stream's
     buffer is sized for ``max_batch`` sequences before the first capture
@@ -64,9 +70,10 @@ def table_width(pages: int, window: Optional[int], page: int) -> int:
 
 @dataclasses.dataclass
 class Captured:
-    """One captured decode step: its static inputs (tokens (B,1) int32,
-    lens (B,) int32, tables (B,W) int32, state rows (B,) int64), its
-    static outputs, and the kernel launches one replay runs."""
+    """One captured decode step: its static inputs (tokens (B,1) int32 or
+    embeddings (B,1,d), lens (B,) int32, tables (B,W) int32, state rows
+    (B,) int64, and positions where given), its static outputs, and the
+    kernel launches one replay runs."""
     graph: "torch.cuda.CUDAGraph"
     inputs: Tuple[torch.Tensor, ...]
     tokens: torch.Tensor
@@ -93,41 +100,49 @@ class DecodeGraphs:
     def __init__(self, model, cache, *, max_batch: int):
         self.model, self.cache, self.max_batch = model, cache, max_batch
         self.device = model.tok.device
-        self.graphs: Dict[Tuple[int, int], Captured] = {}
+        self.graphs: Dict[Tuple[int, ...], Captured] = {}
         self.logits = None
         self.ran = None
         self.captures = self.replays = 0
         self.capture_s = 0.0
         self._stream = self._pool = self._counters = None
 
-    def _eager(self, tokens, lens, tables, rows):
-        logits, _ = tf.decode_forward(self.model, tokens, lens[:, None],
+    def _eager(self, tokens, lens, tables, rows, positions=None):
+        if positions is None:
+            positions = lens[:, None]
+        logits, _ = tf.decode_forward(self.model, tokens, positions,
                                       self.cache, tables, lens, rows)
         return logits, tf.greedy_sample(logits,
                                         self.model.cfg.vocab_size)[:, 0]
 
-    def step(self, tokens, lens, tables, rows):
-        """One decode step: tokens (B,1) int32; lens (B,) int32 tokens
-        cached; tables (B,W) int32 padded to ``table_width``; rows (B,)
-        int64 Mamba state rows.  Returns the greedy next tokens (B,) int32
-        on the device; ``logits`` holds the step's logits (B,1,Vp).  Both
-        outputs are valid until the next step."""
+    def step(self, tokens, lens, tables, rows, positions=None):
+        """One decode step: tokens (B,1) int32 (an ``embed_stub`` model's
+        embeddings (B,1,d)); lens (B,) int32 tokens cached; tables (B,W)
+        int32 padded to ``table_width``; rows (B,) int64 recurrent state
+        rows; positions (B,1) or (B,1,3), by default ``lens``.  Returns
+        the greedy next tokens (B,) int32 on the device; ``logits`` holds
+        the step's logits (B,1,Vp).  Both outputs are valid until the next
+        step."""
+        inputs = (tokens, lens, tables, rows) + (
+            () if positions is None else (positions,))
         if self.device.type == "cpu":
             self.ran = "eager"
-            self.logits, toks = self._eager(tokens, lens, tables, rows)
+            self.logits, toks = self._eager(*inputs)
             return toks
-        g = self.graphs.get(tuple(tables.shape))
+        key = tuple(tables.shape) + (
+            () if positions is None else tuple(positions.shape))
+        g = self.graphs.get(key)
         self.ran = "capture" if g is None else "replay"
         if g is None:
-            return self._capture(tokens, lens, tables, rows)
-        g.fill(tokens, lens, tables, rows)
+            return self._capture(key, inputs)
+        g.fill(*inputs)
         g.replay()
         self.replays += 1
         self.logits = g.logits
         return g.tokens
 
-    def _capture(self, tokens, lens, tables, rows):
-        B, W = tables.shape
+    def _capture(self, key, inputs):
+        B = inputs[2].shape[0]
         if B > self.max_batch:
             raise ValueError(f"a decode batch of {B} over max_batch "
                              f"{self.max_batch}")
@@ -137,7 +152,7 @@ class DecodeGraphs:
             hkv = self.model.cfg.kv_heads_padded(1)
             self._counters = pa.counters(self.device, self.max_batch * hkv,
                                          self._stream.cuda_stream)
-        inputs = tuple(t.clone() for t in (tokens, lens, tables, rows))
+        inputs = tuple(t.clone() for t in inputs)
         cur = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
@@ -153,8 +168,7 @@ class DecodeGraphs:
         after = ops.launches()
         counts = {k: after[k] - before[k] for k in after}
         ops.add_launches({k: -n for k, n in counts.items()})
-        self.graphs[(B, W)] = Captured(graph, inputs, g_toks, g_logits,
-                                       counts)
+        self.graphs[key] = Captured(graph, inputs, g_toks, g_logits, counts)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         self.logits = logits

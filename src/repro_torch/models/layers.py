@@ -85,6 +85,29 @@ def rope_cos_sin(positions, head_dim: int, theta: float,
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 
 
+def mrope_cos_sin(positions3, head_dim: int, theta: float,
+                  sections=(2, 1, 1), dtype=torch.float32):
+    """M-RoPE (Qwen2-VL): positions3 (..., S, 3), the (t, h, w) ids ->
+    cos/sin (..., S, head_dim//2).  The rotary half is split into
+    ``sections`` (in proportion; the last takes the remainder), each
+    rotated by its own stream's positions at its own slice of the
+    frequencies.  Where the three streams coincide (text) this is RoPE."""
+    half = head_dim // 2
+    tot = sum(sections)
+    sizes = [half * s // tot for s in sections]
+    sizes[-1] = half - sum(sizes[:-1])
+    exps = torch.arange(0, half, dtype=torch.float32,
+                        device=positions3.device) / half
+    freqs = 1.0 / (theta ** exps)
+    pos = positions3.float()
+    ang, off = [], 0
+    for i, sz in enumerate(sizes):
+        ang.append(pos[..., i, None] * freqs[off:off + sz])
+        off += sz
+    ang = torch.cat(ang, dim=-1)
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
 def apply_rope(x, cos, sin):
     """Half-split rotation.  x (..., S, H, D); cos/sin (..., S, D/2)
     broadcast over heads."""

@@ -34,11 +34,20 @@ tokens drop.
 
 The cache is a list with one entry per layer.  An attention layer has a
 paged pool ``{"k", "v"}`` of ``(num_blocks, page, Hkv, D)``, and every
-attention layer uses the same block ids.  A Mamba layer has per-slot
-state ``{"conv" (slots, d_conv-1, din), "ssm" (slots, din, ds) f32}``:
-row s belongs to the request in decode slot s, and the entry points take
-each row's ``slots`` as they take its block table.  The reference's
-slot-dense state is the case ``slots = arange(B)``.
+attention layer uses the same block ids.  A recurrent layer has per-slot
+state rows: Mamba ``{"conv" (slots, d_conv-1, din), "ssm" (slots, din,
+ds) f32}``, and in float32 mLSTM ``{"C" (slots, H, Dh, Dh), "n" (slots,
+H, Dh), "m" (slots, H)}`` and sLSTM ``{"c", "n", "h", "m"}`` each
+(slots, d): row s belongs to the request in decode slot s, and the entry
+points take each row's ``slots`` as they take its block table.  The
+reference's slot-dense state is the case ``slots = arange(B)``.
+
+Inputs are tokens (B, S), or under ``frontend="embed_stub"`` (the audio
+and vision backbones, whose encoders the reference stubs out) the
+embeddings (B, S, d), cast to the model's dtype; the ``tok`` table stays,
+as the tied LM head reads it.  Positions are (B, S), or (B, S, 3) for
+M-RoPE's (t, h, w) streams; a decode writes its K/V at ``seq_lens``,
+never at a position id (image tokens share a t).
 
 Under a sliding window W (Mixtral) each sequence's pool is a ring of W
 positions: position p lives at ring slot p % W, mapped through the first
@@ -47,9 +56,6 @@ tables the entry points take hold at most W / page entries.  A prefill
 writes its last min(S, W) tokens; a decode writes at ``seq_lens % W``
 before attention and reads min(seq_lens + 1, W) slots, as the
 reference's ring cache does.
-
-The decode path has no xLSTM state yet: ``init_cache``,
-``decode_forward`` and ``fused_pd_forward`` refuse an xLSTM model.
 
 Only ``lm_loss`` builds an autograd graph; the serving entry points run
 under ``torch.no_grad()``, so a model made trainable (``requires_grad_()``)
@@ -73,6 +79,7 @@ from repro_torch.models.layers import (ParamInit, chunk_size, embed_tokens,
 
 NEG_INF = -1e30
 XLSTM = ("mlstm", "slstm")
+FRONTENDS = ("token", "embed_stub")
 _MIXERS = {"attn": attn_mod.init_attention, "mamba": mamba_mod.Mamba,
            "mlstm": xlstm_mod.MLSTM, "slstm": xlstm_mod.SLSTM}
 _FFNS = {"dense": moe_mod.init_dense_ffn, "moe": moe_mod.init_moe}
@@ -102,9 +109,9 @@ class Transformer(nn.Module):
 
     def __init__(self, init: ParamInit, cfg):
         super().__init__()
-        if cfg.frontend != "token":
-            raise NotImplementedError(f"frontend {cfg.frontend!r} is not "
-                                      "ported yet")
+        if cfg.frontend not in FRONTENDS:
+            raise ValueError(f"{cfg.name}: no such frontend "
+                             f"{cfg.frontend!r}")
         self.cfg = cfg
         self.tok = init.normal(cfg.vocab_padded, cfg.d_model, scale=1.0)
         if not cfg.tie_embeddings:
@@ -125,13 +132,12 @@ def init_model(cfg, *, device, seed: int = 0, dtype=None,
         return Transformer(ParamInit(generator, device, dtype), cfg)
 
 
-def check_decodable(cfg) -> None:
-    """Raise for a model the decode path cannot hold state for yet."""
-    if any(m in XLSTM for m in cfg.layer_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: serving an xLSTM model needs the mLSTM/sLSTM "
-            "decode steps and their state rows in the cache, which are not "
-            "ported yet (forward and lm_loss run it)")
+def embed_inputs(model: Transformer, inputs):
+    """Tokens (B,S) through the embedding table, or an ``embed_stub``
+    model's embeddings (B,S,d) cast to the model's dtype."""
+    if model.cfg.frontend == "embed_stub":
+        return inputs.to(model.tok.dtype)
+    return embed_tokens(model, inputs)
 
 
 def _ffn_residual(blk: Block, cfg, x, **moe_policy):
@@ -146,19 +152,25 @@ def _ffn_residual(blk: Block, cfg, x, **moe_policy):
 
 
 def _read_state(c, slots):
-    """A Mamba layer's state rows of decode ``slots`` (B,) int64."""
-    return {"conv": c["conv"][slots], "ssm": c["ssm"][slots]}
+    """A recurrent layer's state rows of decode ``slots`` (B,) int64."""
+    return {k: t[slots] for k, t in c.items()}
 
 
 def _write_state(c, slots, state):
-    """Write a Mamba state (B rows) into the cache rows ``slots``, in the
-    cache's dtypes, in place."""
-    c["conv"][slots] = state["conv"].to(c["conv"].dtype)
-    c["ssm"][slots] = state["ssm"].to(c["ssm"].dtype)
+    """Write a recurrent layer's state (B rows) into the cache rows
+    ``slots``, in the cache's dtypes, in place."""
+    for k, t in c.items():
+        t[slots] = state[k].to(t.dtype)
 
 
-def _page(cache) -> int:
-    return next(c["k"].shape[1] for c in cache if "k" in c)
+_DECODE_STEPS = {"mamba": mamba_mod.mamba_decode_step,
+                 "mlstm": xlstm_mod.mlstm_decode_step,
+                 "slstm": xlstm_mod.slstm_decode_step}
+
+
+def _page(cache) -> Optional[int]:
+    """The pool's page size (None without an attention layer)."""
+    return next((c["k"].shape[1] for c in cache if "k" in c), None)
 
 
 def _block(blk: Block, cfg, x, positions, impl: str,
@@ -182,12 +194,13 @@ def _block(blk: Block, cfg, x, positions, impl: str,
 @torch.no_grad()
 def forward(model: Transformer, inputs, positions, *, impl: str = "kernel",
             return_aux: bool = False, last_only: bool = False):
-    """inputs (B,S) tokens, positions (B,S).  Returns logits
+    """inputs (B,S) tokens or (B,S,d) embeddings, positions (B,S) or
+    (B,S,3).  Returns logits
     (B,S|1,vocab_padded), or (logits, aux) with ``return_aux`` where aux
     is a per-layer list: {"k", "v"} (B,S,Hkv,D) for an attention layer,
     the final state for a recurrent one ({"conv", "ssm"} Mamba, {"C",
     "n", "m"} mLSTM, {"c", "n", "h", "m"} sLSTM)."""
-    x = embed_tokens(model, inputs)
+    x = embed_inputs(model, inputs)
     aux = []
     for blk in model.layers:
         # return_aux is the serving prefill: the inference capacity policy
@@ -236,7 +249,7 @@ def lm_loss(model: Transformer, tokens, labels, positions, *,
     whole stacked weights out of the loop; eager PyTorch runs each layer's
     ops where they are written and hoists nothing, so none is needed."""
     cfg = model.cfg
-    x = embed_tokens(model, tokens)
+    x = embed_inputs(model, tokens)
     for blk in model.layers:
         # an sLSTM layer checkpoints its token loop in chunks itself: under
         # the layer's remat that loop, one small launch per op and token,
@@ -257,21 +270,24 @@ def lm_loss(model: Transformer, tokens, labels, positions, *,
 
 def init_cache(cfg, num_blocks: int, page: int, slots: int, *,
                device, dtype=None):
-    """A zeroed cache: per attention layer a paged pool {"k", "v"}, each
-    (num_blocks, page, Hkv, D); per Mamba layer the state of ``slots``
-    decode slots, {"conv" (slots, d_conv-1, din) in ``dtype``,
-    "ssm" (slots, din, ds) float32}.  Under a sliding window the page must
-    divide it (the ring's slots are whole pages)."""
-    check_decodable(cfg)
+    """A fresh cache: per attention layer a zeroed paged pool {"k", "v"},
+    each (num_blocks, page, Hkv, D); per recurrent layer the zero state of
+    ``slots`` decode slots (the module docstring), Mamba's conv window in
+    ``dtype``, every other leaf float32.  Under a sliding window the page
+    must divide it (the ring's slots are whole pages)."""
     attn_mod.ring_pages(cfg.sliding_window, page)
     dtype = dtype or getattr(torch, cfg.dtype)
     shape = (num_blocks, page, cfg.kv_heads_padded(1), cfg.head_dim)
     cache = []
     for i in range(cfg.num_layers):
-        if cfg.mixer_at(i) == "attn":
+        kind = cfg.mixer_at(i)
+        if kind == "attn":
             cache.append({"k": torch.zeros(shape, device=device, dtype=dtype),
                           "v": torch.zeros(shape, device=device,
                                            dtype=dtype)})
+        elif kind in XLSTM:
+            cache.append(getattr(xlstm_mod, f"{kind}_init_state")(
+                cfg, slots, device=device))
         else:
             m = cfg.mamba
             cache.append({
@@ -287,7 +303,7 @@ def write_prefill_to_cache(cache, aux, block_tables, slots, *,
                            window: Optional[int] = None):
     """Write ``forward(return_aux=True)`` products into the cache, in
     place: K/V (B,S,Hkv,D) into the pools at positions 0..S-1 of each
-    sequence's ``block_tables`` (B, max_pages) row, and each Mamba
+    sequence's ``block_tables`` (B, max_pages) row, and each recurrent
     layer's final state into rows ``slots`` (B,) int64.  Under a sliding
     ``window`` (the model's ``cfg.sliding_window``) only the last
     min(S, W) positions are written, each once, at its ring slot (two
@@ -295,7 +311,7 @@ def write_prefill_to_cache(cache, aux, block_tables, slots, *,
     Returns the cache."""
     rows = None
     for c, a in zip(cache, aux):
-        if "ssm" in c:
+        if "k" not in c:
             _write_state(c, slots, a)
             continue
         B, S = a["k"].shape[:2]
@@ -313,18 +329,17 @@ def write_prefill_to_cache(cache, aux, block_tables, slots, *,
 @torch.no_grad()
 def decode_forward(model: Transformer, inputs, positions, cache,
                    block_tables, seq_lens, slots, *, impl: str = "kernel"):
-    """One-token decode.  inputs (B,1) tokens; positions (B,1);
-    block_tables (B,max_pages) int32 (ring tables under a window);
-    seq_lens (B,) int32 tokens already cached; slots (B,) int64 the Mamba
-    state row of each sequence.
+    """One-token decode.  inputs (B,1) tokens or (B,1,d) embeddings;
+    positions (B,1) or (B,1,3); block_tables (B,max_pages) int32 (ring
+    tables under a window); seq_lens (B,) int32 tokens already cached;
+    slots (B,) int64 the recurrent state row of each sequence.
     Returns (logits (B,1,vocab_padded), cache) — the cache is updated in
     place."""
     cfg = model.cfg
-    check_decodable(cfg)
     if cfg.sliding_window:
         attn_mod.check_ring_tables(block_tables, cfg.sliding_window,
                                    _page(cache))
-    x = embed_tokens(model, inputs)
+    x = embed_inputs(model, inputs)
     for blk, c in zip(model.layers, cache):
         h = rmsnorm(x, blk.norm1, cfg.norm_eps)
         if blk.kind == "attn":
@@ -332,8 +347,8 @@ def decode_forward(model: Transformer, inputs, positions, cache,
                                             c["k"], c["v"], block_tables,
                                             seq_lens, impl=impl)
         else:
-            out, state = mamba_mod.mamba_decode_step(
-                blk.mixer, cfg, h, _read_state(c, slots))
+            out, state = _DECODE_STEPS[blk.kind](blk.mixer, cfg, h,
+                                                 _read_state(c, slots))
             _write_state(c, slots, state)
         x = _ffn_residual(blk, cfg, x + out, dropless=True)
     return lm_logits(model, x), cache
@@ -344,7 +359,8 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
                      d_positions, cache, block_tables, seq_lens, slots, *,
                      f_decode: float = 0.5, impl: str = "kernel"):
     """The RAPID concurrent step: prefill ``p_inputs`` (Bp,Sp) and decode
-    ``d_inputs`` (Bd,1) through every layer together.
+    ``d_inputs`` (Bd,1) through every layer together (embeddings (.., d)
+    and M-RoPE positions (.., 3) as ``forward`` takes them).
 
     The prefill rows and the decode rows share each layer's projections
     and dense FFN (one matrix product over both); an MoE layer routes
@@ -353,25 +369,27 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
     window) and one ``unified_pd`` launch computes both attentions, the
     prefill tiles within the window.  In a Mamba layer one ``ssm_scan``
     launch runs the prefill from a zero state, and the decode rows take
-    one step on their ``slots``' (Bd,) state, updated in place.  Returns
+    one step on their ``slots``' (Bd,) state, updated in place; an mLSTM
+    or sLSTM layer does the same with its own scan and step.  Returns
     (p_logits (Bp,1,Vp) at the last position, aux per-layer prefill
     products as ``forward``'s, d_logits (Bd,1,Vp), cache) — the same
     products as the reference's forward + decode_forward step."""
     attn_mod.check_impl(impl)
     cfg = model.cfg
-    check_decodable(cfg)
     w = cfg.sliding_window
     if w:
         attn_mod.check_ring_tables(block_tables, w, _page(cache))
-    Bp, Sp = p_inputs.shape
+    Bp, Sp = p_inputs.shape[:2]
     Bd = d_inputs.shape[0]
     n_p = Bp * Sp
-    x = torch.cat([embed_tokens(model, p_inputs).flatten(0, 1),
-                   embed_tokens(model, d_inputs).flatten(0, 1)])
-    positions = torch.cat([p_positions.reshape(-1), d_positions.reshape(-1)])
-    rows = attn_mod.pool_rows(block_tables,
-                              attn_mod.ring_slots(seq_lens, w)[:, None],
-                              _page(cache))
+    x = torch.cat([embed_inputs(model, p_inputs).flatten(0, 1),
+                   embed_inputs(model, d_inputs).flatten(0, 1)])
+    # (n,) or, under M-RoPE, (n, 3): the last axis is the stream's
+    positions = torch.cat([p_positions.flatten(0, 1),
+                           d_positions.flatten(0, 1)])
+    page = _page(cache)
+    rows = None if page is None else attn_mod.pool_rows(
+        block_tables, attn_mod.ring_slots(seq_lens, w)[:, None], page)
     d_lens = attn_mod.ring_lens(seq_lens + 1, w)
     step = ops.unified_pd if impl == "kernel" else _ref_unified_pd
     aux = []
@@ -389,6 +407,14 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
             out = torch.cat([o_p.reshape(n_p, -1),
                              o_d.reshape(Bd, -1)]) @ blk.mixer.wo
             aux.append({"k": kp, "v": vp})
+        elif blk.kind in XLSTM:
+            scan = getattr(xlstm_mod, f"{blk.kind}_forward")
+            y_p, state = scan(blk.mixer, cfg, h[:n_p].view(Bp, Sp, -1))
+            y_d, d_state = _DECODE_STEPS[blk.kind](
+                blk.mixer, cfg, h[n_p:, None], _read_state(c, slots))
+            _write_state(c, slots, d_state)
+            out = torch.cat([y_p.reshape(n_p, -1), y_d.reshape(Bd, -1)])
+            aux.append(state)
         else:
             xz = h @ blk.mixer.in_proj
             y_p, state = mamba_mod.prefill_mixer(
@@ -400,7 +426,7 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
                 blk.mixer.out_proj
             aux.append(state)
         x = x + out
-        if blk.ffn_kind == "dense":
+        if blk.ffn_kind != "moe":
             x = _ffn_residual(blk, cfg, x)
         else:
             x = torch.cat([

@@ -1,14 +1,16 @@
 """xLSTM mixers: mLSTM (matrix memory, chunkwise) and sLSTM (scalar memory).
 
-Counterpart of ``repro/models/xlstm.py``, for full sequences (training
-and prefill).  The decode steps (``mlstm_decode_step``,
-``slstm_decode_step``) and xLSTM serving are not ported yet: the serving
-entry points refuse an xLSTM model.  The reference has no Pallas kernel
-for either mixer, so both run in plain PyTorch.
+Counterpart of ``repro/models/xlstm.py``: full sequences (training and
+prefill) and the O(1) decode steps (``mlstm_decode_step``,
+``slstm_decode_step``) on a state row per sequence.  The reference has no
+Pallas kernel for either mixer, so both run in plain PyTorch.
 
 mLSTM, pre-up-projection block (proj factor 2): the sequence runs in
-chunks; within a chunk the gated quadratic form is computed in parallel,
-and the stabilised matrix state (C, n, m) is carried from chunk to chunk.
+chunks of 128, the last one shorter; within a chunk the gated quadratic
+form is computed in parallel, and the stabilised matrix state (C, n, m)
+is carried from chunk to chunk.  The reference takes the largest divisor
+of the length not above 128, which is 2 for a 1762-token prompt (881
+chunks); the two differ only in float32 rounding.
 The exp input gate and the log-sigmoid forget gate are kept in log space
 under the max-stabiliser m, and the normaliser is floored at
 max(|den|, exp(-m)), as in the reference.
@@ -16,7 +18,8 @@ max(|den|, exp(-m)), as in the reference.
 sLSTM: scalar memory with head-block-diagonal recurrent weights.  It is
 sequential (h_{t-1} feeds the gates), so it runs token by token; the
 input projections W_g x_t are not recurrent and are computed for the
-whole sequence first, and the token loop runs in chunks of 64, each one
+whole sequence first, and the token loop runs in chunks of 64 (the last
+one shorter), each one
 autograd node that keeps only its inputs and recomputes the chunk in
 its backward (``_SLSTMChunk``), so the backward holds one chunk's
 per-token values at a time (``lm_loss`` leaves an sLSTM layer out of its
@@ -34,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import ParamInit, chunk_size
+from repro_torch.models.layers import ParamInit
 
 NEG_INF = -1e30
 GATES = ("z", "i", "f", "o")
@@ -99,11 +102,13 @@ def mlstm_chunk_scan(q, k, v, log_i, log_f, state, *, chunk: int = 128):
     """Chunkwise mLSTM.  q/k/v (B,L,H,Dh), gates (B,L,H) float32, state
     {"C", "n", "m"}.  Returns h (B,L,H,Dh) float32 and the final state."""
     B, L, H, Dh = q.shape
-    c = chunk_size(L, chunk)
+    c = min(chunk, L)
     tri = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
     C0, n0, m0 = (state[k_].float() for k_ in ("C", "n", "m"))
     hs = []
     for s0 in range(0, L, c):
+        if L - s0 < c:                  # the last chunk, shorter
+            tri = tri[:L - s0, :L - s0]
         qt, kt, vt = (t[:, s0:s0 + c].float() for t in (q, k, v))
         li, lf = log_i[:, s0:s0 + c], log_f[:, s0:s0 + c]    # (B,c,H)
         Fc = torch.cumsum(lf, dim=1)          # inclusive log-f prefix
@@ -143,6 +148,28 @@ def mlstm_forward(p: MLSTM, cfg, x, *, state=None, chunk: int = 128):
     h, new_state = mlstm_chunk_scan(q, k, v, log_i, log_f, st, chunk=chunk)
     h = h.reshape(B, L, din).to(x.dtype) * F.silu(z)
     return h @ p.w_down, new_state
+
+
+def mlstm_decode_step(p: MLSTM, cfg, x, state):
+    """x (B,1,d) from ``state`` {"C", "n", "m"} -> (out (B,1,d), the new
+    state): the recurrent update of one token, in float32."""
+    B = x.shape[0]
+    din = mlstm_dims(cfg)[0]
+    q, k, v, log_i, log_f, z = _mlstm_qkvgates(p, cfg, x)
+    q1, k1, v1 = (t[:, 0].float() for t in (q, k, v))         # (B,H,Dh)
+    li, lf = log_i[:, 0], log_f[:, 0]                          # (B,H)
+    C0, n0, m0 = (state[k_].float() for k_ in ("C", "n", "m"))
+    m_t = torch.maximum(lf + m0, li)
+    fp = torch.exp(lf + m0 - m_t)
+    ip = torch.exp(li - m_t)
+    C = fp[..., None, None] * C0 + \
+        ip[..., None, None] * (k1[..., :, None] * v1[..., None, :])
+    n = fp[..., None] * n0 + ip[..., None] * k1
+    num = torch.einsum("bhd,bhde->bhe", q1, C)
+    den = torch.einsum("bhd,bhd->bh", q1, n)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+    h = h.reshape(B, 1, din).to(x.dtype) * F.silu(z)
+    return h @ p.w_down, {"C": C, "n": n, "m": m_t}
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +312,7 @@ def slstm_forward(p: SLSTM, cfg, x, *, state=None, chunk: int = 64):
     pre_x = (x.float() @ w + b).view(B, L, 4, H, Dh).permute(
         1, 3, 0, 2, 4).reshape(L, H, B, 4 * Dh)
     r = torch.cat([getattr(p, f"r_{g}") for g in GATES], dim=-1).float()
-    c = chunk_size(L, chunk)
+    c = min(chunk, L)
     hs = []
     for s0 in range(0, L, c):
         *leaves, h = _SLSTMChunk.apply(*leaves, pre_x[s0:s0 + c], r)
@@ -295,3 +322,22 @@ def slstm_forward(p: SLSTM, cfg, x, *, state=None, chunk: int = 64):
     y = F.silu(h @ p.up_gate) * (h @ p.up)
     return y @ p.down, {k: v.transpose(0, 1).reshape(B, d) for k, v in
                         zip(("c", "n", "h", "m"), leaves)}
+
+
+def slstm_decode_step(p: SLSTM, cfg, x, state):
+    """x (B,1,d) from ``state`` {"c", "n", "h", "m"} -> (out (B,1,d), the
+    new state): one token through ``_slstm_step``'s cell, in float32."""
+    B, _, d = x.shape
+    H, Dh = slstm_dims(cfg)
+    leaves = [state[k].float().view(B, H, Dh).transpose(0, 1)
+              for k in ("c", "n", "h", "m")]
+    w = torch.cat([getattr(p, f"w_{g}") for g in GATES], dim=1).float()
+    b = torch.cat([getattr(p, f"b_{g}") for g in GATES]).float()
+    pre_x = (x[:, 0].float() @ w + b).view(B, 4, H, Dh).permute(
+        2, 0, 1, 3).reshape(H, B, 4 * Dh)
+    r = torch.cat([getattr(p, f"r_{g}") for g in GATES], dim=-1).float()
+    new, _ = _slstm_step(*leaves, pre_x, r)
+    c, n, h, m = (t.transpose(0, 1).reshape(B, d) for t in new)
+    y = h[:, None].to(x.dtype)
+    y = F.silu(y @ p.up_gate) * (y @ p.up)
+    return y @ p.down, {"c": c, "n": n, "h": h, "m": m}

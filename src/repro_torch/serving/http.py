@@ -23,6 +23,13 @@ the writer task only ``take()``s another event after
 ``await writer.drain()`` returns, so a slow client stops draining its
 channel, the channel pauses, and the gateway evicts that one request
 from its engine until the client catches up — other streams unaffected.
+The port also writes an event the moment the gateway offers it (from
+the channel's ``notify``), while the stream's transport holds less than
+``WRITE_BUFFER`` bytes: a token then leaves in the engine callback that
+produced it, not in a task step that would wait behind the engine's next
+launch and hold up that launch's lane completion; the stream's task
+wakes only for the events left to it and for the stream's end, not once
+a token.
 
 Robustness contract (pinned in tests/test_gateway.py): malformed bodies
 and header junk are 400s, unexpected handler failures are 500s — never
@@ -97,7 +104,7 @@ async def _read_request(reader) -> Tuple[str, str, bytes]:
 class GatewayHTTPServer:
     """Serves a ``Gateway`` built on a ``RealTimeClock`` over TCP.
 
-    Two additions of the port:
+    Three additions of the port:
 
       * ``prompts`` (default none): where the workers' executors read a
         request's prompt tokens (the body carries only ``prompt_len``).
@@ -109,6 +116,8 @@ class GatewayHTTPServer:
         Unbounded, the OS and asyncio hold hundreds of KB on loopback,
         thousands of NDJSON lines, and a client that stops reading would
         fill its channel to ``stream_buffer`` only that much later.
+      * An event is written when the gateway offers it, while the
+        stream's transport takes more (the module docstring).
 
     ``port`` 0 takes an ephemeral port; ``start`` stores the one bound.
     """
@@ -235,8 +244,28 @@ class GatewayHTTPServer:
         writer.get_extra_info("socket").setsockopt(
             socket.SOL_SOCKET, socket.SO_SNDBUF, WRITE_BUFFER)
         wake = asyncio.Event()
-        channel = gw.submit(r, notify=wake.set)
+        transport = writer.transport
+
+        def line_of(ev) -> bytes:
+            line = (event_to_json(ev) + "\n").encode()
+            return line if self.line_hook is None else self.line_hook(line)
+
+        def write_now() -> None:
+            # the task is suspended whenever the gateway offers an event,
+            # and every event it took is written: the channel's order holds
+            while (started and channel.buf and not transport.is_closing()
+                   and transport.get_write_buffer_size() < WRITE_BUFFER):
+                writer.write(line_of(channel.take()))
+            # the task wakes only for what is left to it: events this could
+            # not write (before the head, or to a full or closing
+            # transport) or the stream's end
+            if not started or channel.buf or channel.closed:
+                wake.set()
+
+        started = False
+        channel = gw.submit(r, notify=write_now)
         writer.write(_response_head(200, "application/x-ndjson"))
+        started = True
         try:
             await writer.drain()
             while not channel.done:
@@ -247,10 +276,7 @@ class GatewayHTTPServer:
                         break
                     await wake.wait()
                     continue
-                line = (event_to_json(ev) + "\n").encode()
-                if self.line_hook is not None:
-                    line = self.line_hook(line)
-                writer.write(line)
+                writer.write(line_of(ev))
                 # drain before taking the next event: a slow client parks
                 # us here, the channel fills, and the gateway
                 # backpressures this one request out of its engine

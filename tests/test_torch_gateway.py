@@ -677,6 +677,43 @@ def test_http_server_streams_the_card_path(granite):
     assert _reclaimed(gw.registry.workers[0])
 
 
+def test_http_writes_each_event_when_offered(granite):
+    """A token's NDJSON line is written in the engine callback that
+    offers it (a lane completion, in no task), not in a later step of the
+    stream's own task, and the stream carries every token index once."""
+    model = granite[0]
+    clock = RealTimeClock()
+    gw, prompts = _gateway(model, workers=1, clock=clock)
+    server = GatewayHTTPServer(gw, "127.0.0.1", 0, prompts=prompts)
+    writers = []
+
+    def hook(line):
+        if b'"token"' in line:
+            writers.append(asyncio.current_task())
+        return line
+    server.line_hook = hook
+    lines = []
+
+    async def main():
+        await server.start()
+
+        def client():
+            conn, resp = _post(server.port, "/v1/generate",
+                               {"prompt_len": 16, "max_new_tokens": 9})
+            lines.extend(json.loads(x) for x in resp.read().splitlines())
+            conn.close()
+
+        await asyncio.get_running_loop().run_in_executor(None, client)
+        await server.close()
+
+    asyncio.run(asyncio.wait_for(main(), timeout=120))
+    assert [x["index"] for x in lines if x["type"] == "token"] == \
+        list(range(9))
+    assert lines[-1]["type"] == "finished" and len(writers) == 9
+    assert sum(t is None for t in writers) >= 8
+    assert _reclaimed(gw.registry.workers[0])
+
+
 LAUNCH_S = 0.02         # each launch's least length in the stamp test
 
 

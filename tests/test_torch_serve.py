@@ -126,7 +126,10 @@ def test_port_imports_neither_jax_nor_reference():
         "        'repro_torch.data.pipeline', 'repro_torch.models.xlstm',\n"
         "        'repro_torch.configs.xlstm_125m',\n"
         "        'repro_torch.launch.train',\n"
-        "        'repro_torch.launch.train_small'} <= set(engine + mods)\n"
+        "        'repro_torch.launch.train_small',\n"
+        "        'repro_torch.launch.steps',\n"
+        "        'repro_torch.configs.qwen2_vl_72b',\n"
+        "        'repro_torch.configs.musicgen_large'} <= set(engine + mods)\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")

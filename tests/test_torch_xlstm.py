@@ -32,7 +32,7 @@ from repro.models import xlstm as jax_xlstm
 from repro_torch.config import get_config, get_reduced_config, replace
 from repro_torch.convert import model_from_reference
 from repro_torch.core.executor import KernelExecutor
-from repro_torch.launch import serve_real
+from repro_torch.launch import serve as serve_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm
 from repro_torch.models.layers import ParamInit
@@ -100,8 +100,9 @@ def test_config_matches_reference():
 
 @pytest.mark.parametrize("L,chunk,from_state", [
     (32, 8, False),        # L a multiple of the chunk
-    (30, 8, False),        # not: the chunk falls to 6
-    (29, 8, True),         # prime L (chunk 1), from a non-zero state
+    (30, 8, False),        # not: chunks 8, 8, 8, 6 (the reference's: 6)
+    (29, 8, True),         # prime L (the reference's chunk: 1), from a
+                           # non-zero state
     (24, 16, True),        # chunk 12, from a non-zero state
 ])
 def test_mlstm_chunk_scan(L, chunk, from_state):
@@ -131,8 +132,9 @@ def test_mlstm_chunk_scan(L, chunk, from_state):
 @pytest.mark.parametrize("L,from_state", [(40, False), (130, True)])
 def test_mixer_forward(kind, L, from_state):
     """The whole mixer (projections, scan or token loop, output): at 130
-    tokens the mLSTM runs two chunks of 65 and the sLSTM loop five
-    checkpointed chunks of 26."""
+    tokens the mLSTM runs chunks of 128 and 2 (the reference: two of 65)
+    and the sLSTM loop chunks of 64, 64 and 2 (the reference: five of
+    26)."""
     mod, params, cfg, jcfg = _mixer(kind)
     rs = np.random.RandomState(7)
     B = 2
@@ -178,20 +180,18 @@ def test_forward_logits(models):
 
 
 def test_serving_refuses_xlstm(models):
-    """The decode path has no xLSTM state yet: every serving entry point
-    says so, before it allocates anything."""
+    """Since the decode steps and their state rows exist, only the online
+    server refuses an xLSTM model (its requests' state rows, ROADMAP
+    A11), before it allocates anything; the cache, the decode step and
+    the executor take it (``test_torch_xlstm_serve.py`` holds them to the
+    reference)."""
     model, _, cfg, _ = models
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        tf.init_cache(cfg, 8, 4, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="decode steps"):
-        tf.decode_forward(model, None, None, [], None, None, None)
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        tf.fused_pd_forward(model, None, None, None, None, [], None, None,
-                            None, impl="ref")
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        serve_real.serve(model, serve_real.make_requests(cfg, 1, 0))
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        KernelExecutor(model, prompts={}, serve=None, device="cpu")
+    with pytest.raises(NotImplementedError, match="mlstm, slstm"):
+        serve_mod.check_online(cfg)
+    cache = tf.init_cache(cfg, 8, 4, 2, device="cpu")
+    assert [set(c) for c in cache] == [{"C", "n", "m"}] * 2 + \
+        [{"c", "n", "h", "m"}]
+    KernelExecutor(model, prompts={}, serve=None, device="cpu")
 
 
 def test_slstm_chunk_backward_gradcheck():
