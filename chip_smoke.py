@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --only-mesh      # the build, then phase 13
+    python3 chip_smoke.py --gateway-runs N # phase 9 alone, N times
 
 Phases, each reported on its own line; any failure exits non-zero before
 the result line:
@@ -90,8 +92,8 @@ the result line:
                gateway's HTTP server (``GatewayHTTPServer``) in this process
                on 127.0.0.1, over one RAPID worker on the card
                (``RapidEngine`` + ``KernelExecutor``, the pool the scheduler
-               sizes) on ``RealTimeClock``, with ``stream_buffer`` 8.  Client
-               threads (``http.client``) send the reference's lmsys trace at
+               sizes) on ``RealTimeClock``, with ``stream_buffer`` 8.  HTTP
+               clients (``http.client``) send the reference's lmsys trace at
                1 qps for 20 s (seed 0: 13 requests) each at its arrival, one
                request that disconnects mid-stream, and one whose client
                stops reading until the gateway has paused it (evicted from
@@ -107,7 +109,10 @@ the result line:
                lane's launch ended, every one within 30 ms, once the plans
                run in between are taken off (``launch/serve.py``
                ``stamps_late``), each lane completion due by its
-               launch's end.  Reports
+               launch's end.  The clients and the /healthz monitor run in
+               a child process (``smoke_clients.py``, no torch), on the
+               same clock (checked), so none of their threads takes this
+               process's GIL.  Reports
                client-side and engine-side TTFT/ITL, the longest gap
                between heartbeats, the first 64 tokens of each stream beside
                serve_real's, and the paused request's tokens beside an
@@ -172,9 +177,43 @@ the result line:
                reference's shapes is printed as a ``reduced`` list.  The
                result line's kernel records carry the two models' as
                ``at_qwen2_vl`` and ``at_musicgen``.
-In phases 4, 5, 7, 8, 10 and 12 the decode steps run as CUDA graphs, one per
-(batch size, table width), captured at a shape's first step and replayed
-after it (``models/decode_graph.py``).  For each model the graph check
+ 13. mesh    — after phase 12, with its models freed: the mesh half on a
+               1x1 mesh over this card (``launch/mesh.py``
+               ``make_host_mesh``: one rank of NCCL).  (a) ``long_500k``
+               (batch 1, a pool of 524,288 tokens, the reference's shape;
+               the sequence's length drawn from the seed, as every decode
+               cell draws its lengths) through ``launch/steps.py``'s ``build_cell(..., mesh=)`` for
+               the Jamba period, xLSTM-125M whole and Mixtral-8x22B's
+               one-card cut (13 of 56 layers, 65.9 GB; its window's ring):
+               three decode steps as CUDA graphs (one capture, two
+               replays; the last one's wall time reported; on one chip the
+               graphs run the program without a mesh), the last one again
+               eagerly through the placed model's DTensor program, which
+               must launch ``paged_attention`` once per attention layer
+               and give the graph's logits bit for bit, the first on the
+               plain versions within 3e-2 (an MoE model's routing held),
+               exactly ``paged_attention`` launched where the model has
+               attention (none for xLSTM),
+               and ``paged_attention`` at the cell's shapes over all
+               524,288 tokens (the window's 4,096 under a sliding window)
+               against its plain version, with a page read from the wrong
+               block and a split skipped planted (one key dropped moves a
+               row over half a million keys too little), and its time,
+               bound, splits and CTAs.
+               (b) Mixtral-8x22B as phase 10 treats a model: the attention
+               kernels at granite's serving shapes with its 48/8 heads (G
+               6), its MoE layer timed, ``serve_real`` on the 8 requests
+               (held-routing logits, flips under TOL_FLIP_SHARE), the graph
+               check and the decode profile.  (c) One step of
+               ``build_train_cell`` on the 1x1 mesh for MiniCPM-2B at every
+               width cut to 4 layers, at phase 11's batch and optimizer,
+               against phase 11's ``make_train_step`` on the same weights
+               and batch (loss and grad norm within 1e-6).  The result
+               line's kernel records carry ``at_g6``,
+               ``at_long_500k_jamba`` and ``at_long_500k_mixtral_8x22b``.
+In phases 4, 5, 7, 8, 10, 12 and 13 the decode steps run as CUDA graphs,
+one per (batch size, table width), captured at a shape's first step and
+replayed after it (``models/decode_graph.py``).  For each model the graph check
 compares, at the decode batch, three replayed steps (one crossing a page
 boundary, one at a smaller batch) with the eager ``decode_forward`` on the
 same inputs and cache (expected bit-equal; fails above TOL_LOGITS), and
@@ -192,16 +231,14 @@ import bisect
 import collections
 import contextlib
 import copy
+import dataclasses
 import gc
 import http.client
 import json
 import os
-import socket
-import struct
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 import warnings
 
@@ -214,6 +251,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.config import SHAPES, ShapeConfig, get_config, \
     get_one_card_config, get_reduced_config, replace  # noqa: E402
+from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -223,6 +261,7 @@ from repro_torch.kvcache import kv_pages_for  # noqa: E402
 from repro_torch.launch import serve as serve_engine  # noqa: E402
 from repro_torch.launch import serve_real  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch import train_small  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
@@ -231,13 +270,14 @@ from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
+from repro_torch.perfmodel.hw import H100  # noqa: E402
 from repro_torch.serving.clock import RealTimeClock  # noqa: E402
 from repro_torch.serving.gateway import GatewayPolicy  # noqa: E402
 from repro_torch.serving.http import GatewayHTTPServer  # noqa: E402
 from repro_torch.training import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.training.optimizer import OptConfig, adamw_init  # noqa: E402
 from repro_torch.training.train_lib import TrainState, \
-    make_train_step  # noqa: E402
+    init_train_state, make_train_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -2383,6 +2423,395 @@ def cells_phase(gen, seeds=(CELL_SEED,)):
     return recs, launches
 
 
+class ModelCut:
+    """The first ``layers`` layers of ``model`` with its embedding and
+    head, sharing its weights: what the entry points of
+    ``models/transformer.py`` read of a model."""
+
+    def __init__(self, model, layers):
+        self.cfg = dataclasses.replace(model.cfg, num_layers=layers)
+        self.tok, self.final_norm = model.tok, model.final_norm
+        self.lm_head = getattr(model, "lm_head", None)
+        self.layers = model.layers[:layers]
+
+
+class Float32Layers:
+    """Iterates over ``layers`` with each block's parameters in float32
+    while the caller holds it, and back in their own dtype after: a
+    float32 model one layer at a time, on the memory of one layer."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __len__(self):
+        return len(self.layers)
+
+    def __iter__(self):
+        for blk in self.layers:
+            saved = [(p, p.data) for p in blk.parameters()]
+            try:
+                for p, d in saved:
+                    p.data = d.float()
+                yield blk
+            finally:
+                for p, d in saved:
+                    p.data = d
+
+
+class Float32Cut:
+    """``cut`` (a ``ModelCut`` of an ``embed_stub`` model) in float32: its
+    head and final norm copied, its layers through ``Float32Layers``.
+    ``tok`` is an empty float32 tensor: an ``embed_stub`` model reads it
+    for its dtype and device only."""
+
+    def __init__(self, cut):
+        assert cut.cfg.frontend == "embed_stub" and \
+            not cut.cfg.tie_embeddings
+        self.cfg = cut.cfg
+        self.tok = torch.empty(0, device=cut.tok.device)
+        self.final_norm = cut.final_norm.float()
+        self.lm_head = cut.lm_head.float()
+        self.layers = Float32Layers(cut.layers)
+
+
+DEPTH_ARCH = "qwen2-vl-72b"
+DEPTHS = (4, 12, 24, 36)
+DEPTH_SEEDS = (12, 13, 14, 15)
+
+
+def logits_depths(depths=DEPTHS, seeds=DEPTH_SEEDS):
+    """``--logits-depths`` (ROADMAP C9): Qwen2-VL-72B's one-card cut at
+    each depth of ``depths`` (its first layers), the prefill cell and the
+    first decode step of the decode cell (inputs and cache drawn as phase
+    12 draws them at each seed), on three paths: the kernel path and the
+    plain path in bf16, and the plain path in float32 on the same weights
+    (cast one layer at a time) and the same cache.  Returns one record per
+    depth and seed: max|a - b| / max|b| for kernel vs plain, kernel vs
+    float32 and plain vs float32."""
+    cfg = get_one_card_config(DEPTH_ARCH)
+    model = init_full(cfg)
+    model.tok = torch.nn.Parameter(torch.empty(0, device=DEVICE,
+                                               dtype=model.tok.dtype),
+                                   requires_grad=False)   # embed_stub
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = []
+    for depth in depths:
+        cut = ModelCut(model, depth)
+        f32 = Float32Cut(cut)
+        for seed in seeds:
+            prefill = steps_mod.build_prefill_cell(cut, CELL_PREFILL)
+            p_args = prefill.materialize(seed, DEVICE)
+            p = {impl: tf.forward(cut, **p_args, impl=impl, last_only=True)
+                 for impl in ("kernel", "ref")}
+            p["f32"] = tf.forward(f32, **p_args, impl="ref", last_only=True)
+            decode = steps_mod.build_decode_cell(cut, CELL_DECODE,
+                                                 impl="ref")
+            a = decode.materialize(seed + 1, DEVICE)
+            c = decode.cache
+            call = (a["inputs"], a["positions"], c.layers, c.tables,
+                    a["seq_lens"], c.slots)
+            d = {impl: tf.decode_forward(cut, *call, impl=impl)[0]
+                 for impl in ("kernel", "ref")}
+            for layer in c.layers:       # the same cache, in float32
+                for k in list(layer):
+                    layer[k] = layer[k].float()
+            d["f32"] = tf.decode_forward(f32, *call, impl="ref")[0]
+            rec = {"depth": depth, "seed": seed}
+            for name, r in (("prefill", p), ("decode_step_0", d)):
+                rec[name] = {
+                    "kernel_vs_plain": rel_err(r["kernel"], r["ref"]),
+                    "kernel_vs_f32": rel_err(r["kernel"], r["f32"]),
+                    "plain_vs_f32": rel_err(r["ref"], r["f32"])}
+            say("depths", **rec)
+            out.append(rec)
+            del prefill, decode, c, p, d, call, a
+            gc.collect()
+            torch.cuda.empty_cache()
+        del f32
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the mesh half: long_500k through the 1x1 mesh, Mixtral-8x22B
+# served, one train-cell step
+# ---------------------------------------------------------------------------
+
+LONG = SHAPES["long_500k"]
+LONG_STEPS = 3          # the first captures, the others replay
+LONG_SEED = 21
+MIXTRAL_22B = "mixtral-8x22b"
+TRAIN_CELL_LAYERS = 4   # MiniCPM-2B's depth cut for (c); every width kept
+
+
+def long_attention_record(cell, args):
+    """``paged_attention`` at the cell's shapes (its first attention
+    layer's pool, a random query) over the whole sequence the shape holds,
+    524,288 tokens (the window under a sliding window): against its plain
+    version, its time beside its bound, and the splits and CTAs the
+    wrapper chose."""
+    cfg, c = cell.cfg, cell.cache
+    pool = next(x for x in c.whole if "k" in x)
+    gen = torch.Generator(device=DEVICE).manual_seed(LONG_SEED)
+    q = randn(gen, 1, cfg.num_heads, cfg.head_dim, dtype=torch.bfloat16)
+    lens = attn_mod.ring_lens(torch.full_like(args["seq_lens"], LONG.seq_len),
+                              cfg.sliding_window).to(torch.int32)
+    dec = (q, pool["k"], pool["v"], c.tables, lens)
+    # over half a million random keys attention is near uniform: one key
+    # dropped moves a row by less than TOL_ROW, so that fault is left out;
+    # a page read from the wrong block and a split skipped still show
+    faults = {k: v for k, v in decode_faults(*dec).items()
+              if k != "last_key_dropped"}
+    rec = kernel_record(
+        within_bf16("paged_attention", pa.paged_attention(*dec),
+                    ref.paged_attention(*dec), faults),
+        lambda: pa.paged_attention(*dec), lambda: ref.paged_attention(*dec),
+        None, decode_work(q, pool["k"], lens),
+        f"q{list(q.shape)} lens{lens.tolist()} pages {c.tables.shape[1]} "
+        f"of {c.page} bf16")
+    rec["splits"] = pa.split_count(c.tables.shape[1], c.page)
+    rec["ctas"] = rec["splits"] * cfg.num_kv_heads
+    rec["kv_gb"] = 2 * pool["k"].numel() * pool["k"].element_size() / 1e9
+    return rec
+
+
+def long_500k_check(model, mesh):
+    """(a) for one model: ``long_500k`` (batch 1, 524,288 tokens) through
+    ``build_cell(model, long_500k, mesh=1x1)``, beside its plain version,
+    each cache drawn from LONG_SEED.  With the counts at 0, LONG_STEPS
+    decode steps as CUDA graphs (the first captures; on one chip the
+    graphs run the program without a mesh, on the same tensors); then,
+    with the counts at 0 again, the last step taken again eagerly through
+    the placed model's DTensor program on the same cache: it launches
+    ``paged_attention`` once per attention layer (on each chip's local
+    shards, ``sharding.on_shards``) and gives the graph's logits bit for
+    bit, so the 1x1 mesh computes what the program without one does.  The
+    first step on the plain versions (an MoE model's expert choices held
+    to the kernel path's, ``routing``) is within TOL_LOGITS.  Returns (its
+    record, the steps' launches, the mesh cell, its args)."""
+    cfg = model.cfg
+    cells = {"mesh": steps_mod.build_cell(model, LONG, mesh=mesh, hw=H100),
+             "plain": steps_mod.build_decode_cell(model, LONG, impl="ref")}
+    args = {k: c.materialize(LONG_SEED, DEVICE) for k, c in cells.items()}
+    require(torch.equal(args["plain"]["seq_lens"],
+                        args["mesh"]["seq_lens"]),
+            f"{cfg.name}: long_500k cells drew other lengths")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = steps_mod.decode_steps(cells["mesh"], args["mesh"], LONG_STEPS - 1,
+                                 LONG_SEED)
+    # the state rows the last step starts from: its eager run through the
+    # DTensor program must start there too (K/V rows it rewrites alike)
+    before = state_rows(cells["mesh"].cache.whole)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last_args, last = _last_step(cells["mesh"], got[-1][0], LONG_STEPS - 1)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches = ops.launches()
+    put_state_rows(cells["mesh"].cache.whole, before)
+    ops.reset_launches()
+    eager = steps_mod.gather(steps_mod.eager_decode_step(cells["mesh"],
+                                                         **last_args))
+    torch.cuda.synchronize()
+    eager_launches = ops.launches()
+    log = {"choices": [], "flips": 0, "order_flips": 0, "pairs": 0}
+    c, a = cells["plain"].cache, args["plain"]
+    call = (a["inputs"], a["positions"], c.layers, c.tables, a["seq_lens"],
+            c.slots)
+    rows = state_rows(c.layers)
+    with routing("record", log):
+        kern = tf.decode_forward(model, *call, impl="kernel")[0].clone()
+    put_state_rows(c.layers, rows)       # the plain step's from the same
+    with routing("replay", log):
+        plain = tf.decode_forward(model, *call, impl="ref")[0]
+    graphs = cells["mesh"].graphs.stats()
+    n_attn = sum(cfg.mixer_at(i) == "attn" for i in range(cfg.num_layers))
+    want_eager = {k: (n_attn if k == "paged_attention" else 0)
+                  for k in eager_launches}
+    rec = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "cache_len": int(args["mesh"]["seq_lens"][0]),
+           "steps": LONG_STEPS, "graphs": graphs,
+           "mesh_dtensor_vs_no_mesh_graph_bit_equal": torch.equal(eager,
+                                                                  last),
+           "mesh_dtensor_vs_no_mesh_graph_rel_err": rel_err(eager, last),
+           "mesh_dtensor_launches": eager_launches,
+           "attention_layers": n_attn,
+           "kernel_vs_plain_rel_err": rel_err(kern, plain),
+           "routing_flips": log["flips"], "routed_pairs": log["pairs"],
+           "replayed_step_ms": step_s * 1e3, "launches": launches,
+           "kv_pages": cells["mesh"].cache.whole_blocks}
+    require((graphs["graphs"], graphs["replays"]) == (1, LONG_STEPS - 1),
+            f"{cfg.name} long_500k: the steps did not capture once and "
+            f"replay: {graphs}")
+    require(eager_launches == want_eager, f"{cfg.name} long_500k: the "
+            f"eager DTensor step launched {eager_launches}, its {n_attn} "
+            f"attention layers launch paged_attention once each")
+    require(rec["mesh_dtensor_vs_no_mesh_graph_bit_equal"], f"{cfg.name} "
+            f"long_500k: the 1x1 mesh's DTensor step differs from the "
+            f"graph of the program without a mesh: "
+            f"{rec['mesh_dtensor_vs_no_mesh_graph_rel_err']}")
+    require(rec["kernel_vs_plain_rel_err"] < TOL_LOGITS, f"{cfg.name} "
+            f"long_500k: kernel vs plain logits {rec}")
+    launched = {k for k, n in launches.items() if n}
+    want = {"paged_attention"} if "attn" in cfg.layer_pattern else set()
+    require(launched == want, f"{cfg.name} long_500k: launched "
+            f"{sorted(launched)}, its decode runs {sorted(want)}")
+    del cells["plain"], got
+    return rec, launches, cells["mesh"], args["mesh"]
+
+
+def _last_step(cell, args, i):
+    """``decode_steps``' step i after the step that took ``args``: fresh
+    inputs drawn from (LONG_SEED, i), one more position and cached token.
+    Returns (its args, its logits (a copy))."""
+    x = args["inputs"]
+    nxt = dict(args, inputs=steps_mod.draw_inputs(
+        cell.cfg, np.random.default_rng((LONG_SEED, i)), x.shape[0], 1,
+        x.device, x.dtype), positions=args["positions"] + 1,
+        seq_lens=args["seq_lens"] + 1)
+    return nxt, cell(**nxt).clone()
+
+
+def long_phase(model, mesh, key):
+    """(a) for one loaded model: ``long_500k_check`` and, where it has an
+    attention layer, ``paged_attention`` at the cell's shapes.  Returns
+    ({key: kernel record} or {}, the launches by path)."""
+    cfg = model.cfg
+    rec, launches, cell, args = long_500k_check(model, mesh)
+    attn = {}
+    if "attn" in cfg.layer_pattern:
+        attn[key] = {"paged_attention": long_attention_record(cell, args)}
+        rec["paged_attention"] = attn[key]["paged_attention"]
+    say("mesh", phase="long_500k", config=cfg.name, layers=cfg.num_layers,
+        window=cfg.sliding_window, limit=TOL_LOGITS,
+        reduced=[f"layers {get_config(cfg.name).num_layers} -> "
+                 f"{cfg.num_layers}"] if cfg.num_layers != get_config(
+                     cfg.name).num_layers else [], **rec)
+    del cell, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return attn, {f"{cfg.name}-long_500k": launches}
+
+
+def mixtral_22b_phase(gen, mesh):
+    """(b) Mixtral-8x22B's one-card cut, as phase 10 treats a new model:
+    the attention kernels at its serving shapes (G 6), its model through
+    ``serve_real`` (held-routing logits, flips under TOL_FLIP_SHARE), its
+    MoE layer timed, the graph check and the decode profile; then (a) on
+    the same model.  Returns (kernel records by key, launches by path)."""
+    cfg = get_one_card_config(MIXTRAL_22B)
+    reqs = serving_requests(cfg)
+    recs = check_main_path_shapes(gen, main_path_shapes(cfg, reqs))
+    say("kernels", phase="main_path_shapes", config=cfg.name,
+        G=cfg.num_heads // cfg.num_kv_heads, D=cfg.head_dim,
+        tolerance_bf16=TOL_BF16, tolerance_bf16_row=TOL_ROW, **recs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = init_full(cfg)
+    say("moe", config=cfg.name, layer=0, **moe_layer_record(gen, model, reqs))
+    launches = {}
+    launches[cfg.name] = serve_full(model, reqs)[0]
+    graph_phase(model, reqs, gen)
+    attn, by_path = long_phase(model, mesh, "at_long_500k_mixtral_8x22b")
+    launches.update(by_path)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"at_g6": recs, **attn}, launches
+
+
+def train_cell_check(mesh, card):
+    """(c) MiniCPM-2B at every width, cut to TRAIN_CELL_LAYERS layers: one
+    step of ``build_train_cell`` on the 1x1 mesh at phase 11's batch (2 x
+    4096 tokens, 2 microbatches, phase 11's optimizer), against phase
+    11's ``make_train_step`` on the same weights (both from seed 0) and
+    the same batch (``TokenPipeline``'s first); loss and grad norm within
+    1e-6 relative (bit-equal expected: one chip runs the same
+    operations)."""
+    argv = MINICPM_TRAIN
+    batch, seq = (int(argv[argv.index(f) + 1]) for f in ("--batch",
+                                                          "--seq-len"))
+    mb = int(argv[argv.index("--microbatches") + 1])
+    cfg = dataclasses.replace(get_one_card_config("minicpm-2b"),
+                              num_layers=TRAIN_CELL_LAYERS)
+    steps_n = int(argv[argv.index("--steps") + 1])
+    opt = OptConfig(lr=1e-3, warmup_steps=5, stable_steps=max(10, steps_n),
+                    decay_steps=10, moment_dtype=cfg.opt_dtype)
+    pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=0)
+    b = train_launch.make_batch(pipe, DEVICE)
+    ops.reset_launches()
+    t = time.perf_counter()
+    a_state = init_train_state(cfg, opt, device=DEVICE, seed=0)
+    cell = steps_mod.build_train_cell(a_state.model, ShapeConfig(
+        "train_4k", seq, batch, "train"), mesh=mesh, opt=opt,
+        microbatches=mb)
+    got = {k: float(steps_mod.gather(v)) for k, v in cell(**b).items()}
+    torch.cuda.synchronize()
+    cell_s = time.perf_counter() - t
+    del cell, a_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_train_state(cfg, opt, device=DEVICE, seed=0)
+    _, want = make_train_step(cfg, opt, microbatches=mb)(state, b)
+    want = {k: float(v) for k, v in want.items()}
+    launches = ops.launches()
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "batch": [batch, seq], "microbatches": mb,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "cell": got, "phase_11_step": want,
+           "loss_rel_err": abs(got["loss"] - want["loss"]) / abs(
+               want["loss"]),
+           "grad_norm_rel_err": abs(got["grad_norm"] - want["grad_norm"]) /
+           abs(want["grad_norm"]),
+           "bit_equal": got["loss"] == want["loss"] and
+           got["grad_norm"] == want["grad_norm"],
+           "tolerance": 1e-6, "cell_s": cell_s, "launches": launches,
+           "card": card}
+    say("mesh", phase="train_cell", **rec)
+    require(rec["loss_rel_err"] <= 1e-6 and rec["grad_norm_rel_err"] <= 1e-6,
+            f"the train cell's step differs from phase 11's: {rec}")
+    require(not any(launches.values()), f"training launched kernels "
+            f"{launches}: it runs the plain versions")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"minicpm-2b-train-cell": launches}
+
+
+def mesh_phase(gen, card):
+    """Phase 13: (a) ``long_500k`` through a 1x1 mesh for the Jamba period,
+    xLSTM-125M and (in (b)) Mixtral-8x22B; (b) Mixtral-8x22B served; (c)
+    one train-cell step.  Returns (kernel records by key, launches by
+    path)."""
+    mesh = make_host_mesh()
+    recs, launches = {}, {}
+    try:
+        for name, cfg in (("at_long_500k_jamba", jamba_period()),
+                          (None, get_config(XLSTM_ARCH))):
+            with timed(f"long_500k {cfg.name}"):
+                model = init_full(cfg)
+                attn, by_path = long_phase(model, mesh, name)
+                recs.update(attn)
+                launches.update(by_path)
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+        with timed(MIXTRAL_22B):
+            attn, by_path = mixtral_22b_phase(gen, mesh)
+        recs.update(attn)
+        launches.update(by_path)
+        with timed("train_cell"):
+            launches.update(train_cell_check(mesh, card))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    return recs, launches
+
+
 # ---------------------------------------------------------------------------
 # phase 9: the online gateway and its HTTP server, on granite-8b
 # ---------------------------------------------------------------------------
@@ -2410,57 +2839,76 @@ GATEWAY_DEADLINE_S = 240.0
 
 
 class Client:
-    """One HTTP client thread: POST /v1/generate at ``at`` seconds after
-    ``t0``, read the NDJSON stream line by line with the receive times,
-    and (``cancel_after``) disconnect after that token index, or
-    (``pause``) stop reading after token 2 until ``pause(rid)``
-    returns."""
+    """One HTTP client of phase 9, run by the client process
+    (``ChildClients``): it POSTs /v1/generate at ``at`` seconds after the
+    phase's t0 and reads the NDJSON stream line by line with the receive
+    times; with ``cancel_after`` it disconnects after that token index,
+    with ``pause`` it stops reading after token 2 until its stream is
+    paused (evicted)."""
 
-    def __init__(self, port, t0, at, body, cancel_after=None, pause=None):
-        self.port, self.t0, self.at, self.body = port, t0, at, body
+    def __init__(self, at, body, cancel_after=None, pause=False):
+        self.at, self.body = at, body
         self.cancel_after, self.pause = cancel_after, pause
-        self.lines, self.times, self.error = [], [], None
-        self.sent = None
-        self.thread = threading.Thread(target=self._run, daemon=True)
-
-    def _run(self):
-        try:
-            time.sleep(max(0.0, self.t0 + self.at - time.perf_counter()))
-            sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-            if self.pause is not None:   # a small window fills up soon
-                sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1024)
-            sock.settimeout(GATEWAY_DEADLINE_S)
-            sock.connect(("127.0.0.1", self.port))
-            conn = http.client.HTTPConnection("127.0.0.1", self.port)
-            conn.sock = sock
-            self.sent = time.perf_counter()
-            conn.request("POST", "/v1/generate", body=json.dumps(self.body))
-            resp = conn.getresponse()
-            if resp.status != 200:
-                raise RuntimeError(f"HTTP {resp.status}: {resp.read()}")
-            while True:
-                line = resp.readline()
-                if not line:
-                    break
-                self.times.append(time.perf_counter())
-                ev = json.loads(line)
-                self.lines.append(ev)
-                if ev["type"] != "token":
-                    continue
-                if ev["index"] == self.cancel_after:
-                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
-                                    struct.pack("ii", 1, 0))   # a reset
-                    sock.close()
-                    return
-                if ev["index"] == 2 and self.pause is not None:
-                    self.pause(ev["rid"])
-            conn.close()
-        except Exception as e:  # noqa: BLE001 — reported by the phase
-            self.error = repr(e)
+        self.lines, self.times, self.error, self.sent = [], [], None, None
 
     def token_times(self):
         return [t for t, ev in zip(self.times, self.lines)
                 if ev["type"] == "token"]
+
+
+class ChildClients:
+    """The clients and the /healthz monitor in a child process
+    (``smoke_clients.py``, which imports no torch), so that their threads
+    never take this process's GIL.  Its records come back over a pipe, on
+    ``time.perf_counter()`` as the parent's: both read CLOCK_MONOTONIC,
+    which ``check_clock`` verifies.  A paused client waits on an eviction
+    that ``evicted`` reports to the child."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "smoke_clients.py")],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            bufsize=1)
+
+    def send(self, **msg):
+        self.proc.stdin.write(json.dumps(msg) + "\n")
+        self.proc.stdin.flush()
+
+    def read(self):
+        line = self.proc.stdout.readline()
+        require(line, "gateway: the client process ended early")
+        return json.loads(line)
+
+    def check_clock(self):
+        """The child's ``perf_counter`` read between two of the parent's:
+        returns (before, child, after)."""
+        before = time.perf_counter()
+        self.send(clock=True)
+        child = self.read()["clock"]
+        after = time.perf_counter()
+        require(before <= child <= after, f"gateway: the client process's "
+                f"clock reads {child} outside [{before}, {after}]")
+        return before, child, after
+
+    def start(self, port, t0, clients):
+        self.clients = clients
+        self.send(port=port, t0=t0, poll_s=0.25, clients=[
+            {"at": c.at, "body": c.body, "cancel_after": c.cancel_after,
+             "pause": c.pause} for c in clients])
+
+    def evicted(self, rid):
+        self.send(evicted=rid)
+
+    def finish(self):
+        """Stops the monitor; fills each client's records from the child's;
+        returns the monitor's /healthz replies."""
+        self.send(stop=True)
+        out = self.read()
+        self.proc.wait(30)
+        for c, rec in zip(self.clients, out["clients"]):
+            c.lines, c.times = rec["lines"], rec["times"]
+            c.sent, c.error = rec["sent"], rec["error"]
+        return out["health"]
 
 
 def http_get(port, path):
@@ -2478,219 +2926,18 @@ def stats_ms(xs):
             "p95": float(np.percentile(xs, 95)) * 1e3} if xs else None
 
 
-class LoopTrace:
-    """What holds the event loop's thread while phase 9 serves (ROADMAP
-    C8), on ``time.perf_counter``: every callback the loop runs (asyncio's
-    ``Handle._run``: the engine's lane completions with the plans they
-    launch, the HTTP handlers' task steps, IO callbacks), every wait in
-    its selector (with the timeout it was given), every collection of the
-    garbage collector (its generation and thread), and the health
-    monitor's polls.  Each callback and wait also takes, over its span,
-    the loop thread's CPU time (``time.thread_time``), the process's
-    (``time.process_time``) and the thread's run delay, its time runnable
-    but off a core (``/proc/<tid>/schedstat``, Linux): of a callback's
-    wall time, what its own code ran, what it waited for a core, and the
-    rest, asleep (for the GIL or in a blocking call).  ``report``
-    attributes the stamp lag of each late TokenEvent (its lane's end to
-    its stamp) to them."""
-
-    def __init__(self):
-        self.handles, self.selects, self.gcs, self.polls = [], [], [], []
-        self._undo = []
-        self._gc_at = {}
-        self._sched = None
-
-    @staticmethod
-    def _name(handle):
-        cb = handle._callback
-        task = getattr(cb, "__self__", None)
-        if isinstance(task, asyncio.Task):
-            return "task " + task.get_coro().__qualname__
-        return getattr(cb, "__qualname__", type(cb).__name__)
-
-    def _clocks(self):
-        """The loop thread's CPU time, the process's, and the thread's run
-        delay (s; 0 where the kernel keeps no schedstat)."""
-        delay = (int(os.pread(self._sched, 128, 0).split()[1]) * 1e-9
-                 if self._sched is not None else 0.0)
-        return time.thread_time(), time.process_time(), delay
-
-    def _since(self, c0):
-        """(own CPU, other threads' CPU, run delay) since ``_clocks``
-        gave ``c0``."""
-        c1 = self._clocks()
-        own = c1[0] - c0[0]
-        return own, (c1[1] - c0[1]) - own, c1[2] - c0[2]
-
-    def install(self):
-        """Before the loop starts, on its thread: the callback and
-        collector hooks."""
-        run, trace = asyncio.events.Handle._run, self
-        try:
-            self._sched = os.open(
-                f"/proc/self/task/{threading.get_native_id()}/schedstat",
-                os.O_RDONLY)
-            self._undo.append(lambda: os.close(self._sched))
-        except OSError:
-            self._sched = None
-
-        def timed_run(handle):
-            t0, c0 = time.perf_counter(), trace._clocks()
-            try:
-                return run(handle)
-            finally:
-                t1 = time.perf_counter()
-                long = t1 - t0 > 5e-4
-                trace.handles.append(
-                    (t0, t1, trace._name(handle) if long else None,
-                     trace._since(c0) if long else None))
-
-        def on_gc(phase, info):
-            now = time.perf_counter()
-            tid = threading.get_ident()
-            if phase == "start":
-                self._gc_at[tid] = now
-            elif tid in self._gc_at:
-                self.gcs.append((self._gc_at.pop(tid), now,
-                                 info["generation"],
-                                 threading.current_thread().name))
-
-        asyncio.events.Handle._run = timed_run
-        gc.callbacks.append(on_gc)
-        self._undo += [lambda: setattr(asyncio.events.Handle, "_run", run),
-                       lambda: gc.callbacks.remove(on_gc)]
-
-    def attach(self, loop):
-        """Inside the running loop: its selector's waits."""
-        sel = loop._selector
-        select = sel.select
-
-        def timed_select(timeout=None):
-            t0, c0 = time.perf_counter(), self._clocks()
-            ready = select(timeout)
-            self.selects.append((t0, timeout, time.perf_counter(),
-                                 self._since(c0)[2]))
-            return ready
-
-        sel.select = timed_select
-
-    def remove(self):
-        for undo in reversed(self._undo):
-            undo()
-        self._undo = []
-
-    def report(self, windows, lags, offset, limit, plans):
-        """For the TokenEvents whose net lag passes ``limit``: where the
-        loop thread's time went between each lane's end and the stamp,
-        outside the ``plans`` (host spans of the plans, which the net lag
-        takes off), summed over them (seconds): callbacks by name, waits
-        in the selector, how far each overslept its timeout and the run
-        delay in them, collections on the loop's thread and on others,
-        health polls in flight, and time in none of them (the loop's own
-        code); the callbacks of 0.5 ms and more there split into the loop
-        thread's CPU time, its run delay and the rest (asleep), beside the
-        process's other threads' CPU time over them; and the longest
-        single callbacks there (ms: wall, own CPU, run delay, other
-        threads' CPU)."""
-        late = sorted({(a - offset, b - offset) for (a, b), x in
-                       zip(windows, lags) if x > limit})
-        plans = sorted(plans)
-
-        def free(a, b):
-            """[a, b] less the plans' spans."""
-            out, t = [], a
-            for p0, p1 in plans:
-                if p1 <= t or p0 >= b:
-                    continue
-                if p0 > t:
-                    out.append((t, p0))
-                t = max(t, p1)
-            if t < b:
-                out.append((t, b))
-            return out
-
-        def overlap(segs, t0, t1):
-            return sum(max(0.0, min(b, t1) - max(a, t0)) for a, b in segs)
-
-        def within(entries, starts, a, b):
-            """The entries (sequential on one thread, by start) that
-            overlap [a, b]."""
-            i = max(0, bisect.bisect_right(starts, a) - 1)
-            j = bisect.bisect_right(starts, b)
-            return entries[i:j]
-
-        handle_at = [h[0] for h in self.handles]
-        select_at = [x[0] for x in self.selects]
-        by_name, out = collections.Counter(), collections.Counter()
-        split = collections.Counter()
-        longest = []
-        main = threading.main_thread().name
-        for a, b in late:
-            segs = free(a, b)
-            length = sum(y - x for x, y in segs)
-            out["net_window"] += length
-            covered = 0.0
-            for t0, t1, name, cpu in within(self.handles, handle_at, a, b):
-                o = overlap(segs, t0, t1)
-                by_name[name or "short (< 0.5 ms)"] += o
-                covered += o
-                if cpu is None or o == 0.0:
-                    continue
-                # a callback's parts, in the share of it that the window
-                # holds
-                own, others, delay = (x * o / (t1 - t0) for x in cpu)
-                split["wall"] += o
-                split["own_cpu"] += own
-                split["run_delay"] += delay
-                split["asleep"] += o - own - delay
-                split["other_threads_cpu"] += others
-                if o > 5e-4:
-                    longest.append((o * 1e3, name, own * 1e3, delay * 1e3,
-                                    others * 1e3))
-            for t0, timeout, t1, delay in within(self.selects, select_at,
-                                                 a, b):
-                o = overlap(segs, t0, t1)
-                out["selector_wait"] += o
-                covered += o
-                if timeout is not None:
-                    past = overlap(segs, t0 + timeout, t1)
-                    out["selector_past_timeout"] += past
-                    if past:
-                        out["selector_run_delay"] += delay
-            for t0, t1, _, thread in self.gcs:
-                out["gc_loop_thread" if thread == main else
-                    "gc_other_threads"] += overlap(segs, t0, t1)
-            for t0, t1 in self.polls:
-                out["healthz_poll_in_flight"] += overlap(segs, t0, t1)
-            out["in_none"] += length - covered
-        gens = collections.Counter(g for *_, g, _t in self.gcs)
-        return {"late_tokens": sum(x > limit for x in lags),
-                "late_windows": len(late),
-                "seconds_net_of_plans": dict(out),
-                "callbacks_s": dict(by_name.most_common(12)),
-                "long_callbacks_s": dict(split),
-                "longest_callbacks_ms": sorted(longest, reverse=True)[:12],
-                "gc_collections_by_generation": dict(gens),
-                "gc_longest_ms": max(((t1 - t0) * 1e3 for t0, t1, *_ in
-                                      self.gcs), default=0.0),
-                "callbacks": len(self.handles),
-                "run_s": self.handles[-1][1] - self.handles[0][0]
-                if self.handles else None,
-                "selects": len(self.selects),
-                "run_delay_kept": self._sched is not None}
-
-
-def gateway_phase(model, loop_trace=None):
+def gateway_phase(model):
     """Phase 9: ``GatewayHTTPServer`` in this process on 127.0.0.1, over
     one RAPID worker (``RapidEngine`` + ``KernelExecutor`` with the pool
-    the scheduler sizes from ``H100``) on ``RealTimeClock``, driven by
-    client threads over HTTP: ``GATEWAY_BURST``, ``GATEWAY_TRACE`` at its
-    arrivals, a client that disconnects, and one that stops reading until
-    its stream is paused.  The objects of the earlier phases are frozen
-    out of the garbage collector's walks while it serves, as a server does
-    after its warm-up.  ``loop_trace`` (a ``LoopTrace``) records what
-    holds the loop's thread.  Returns the kernel launches of the run and
-    the stamp lags' p99 and max (ms, net of plans)."""
+    the scheduler sizes from ``H100``) on ``RealTimeClock``, driven over
+    HTTP by clients in a process of their own (``ChildClients``), so that
+    none of their threads takes this process's GIL: ``GATEWAY_BURST``,
+    ``GATEWAY_TRACE`` at its arrivals, a client that disconnects, and one
+    that stops reading until its stream is paused, beside a /healthz
+    monitor.  The objects of the earlier phases are frozen out of the
+    garbage collector's walks while it serves, as a server does after its
+    warm-up.  Returns the kernel launches of the run and the stamp lags'
+    p99 and max (ms, net of plans)."""
     cfg = model.cfg
     t_phase = time.perf_counter()
     gc.collect()
@@ -2722,26 +2969,18 @@ def gateway_phase(model, loop_trace=None):
 
     gw.clock.at = at_lane
     server = GatewayHTTPServer(gw, "127.0.0.1", 0, prompts=prompts)
-    errors, health, evicted, offset = [], [], set(), []
-
-    def wait_paused(rid):
-        """The slow client's stall: until the engine has evicted its
-        request (the gateway's backpressure pause), then a little more."""
-        deadline = time.perf_counter() + 60.0
-        while time.perf_counter() < deadline and rid not in evicted:
-            time.sleep(0.05)
-        time.sleep(0.3)
+    errors, health, offset = [], [], []
+    child = ChildClients()
+    clock = child.check_clock()
 
     def on_engine(ev):
         if type(ev).__name__ == "PhaseEvent" and ev.phase == "preempted":
-            evicted.add(ev.rid)
+            child.evicted(ev.rid)
 
     eng.subscribe(on_engine)
 
     async def main():
         loop = asyncio.get_running_loop()
-        if loop_trace is not None:
-            loop_trace.attach(loop)
         loop.set_exception_handler(
             lambda lp, ctx: errors.append(str(ctx.get("exception") or
                                               ctx.get("message"))))
@@ -2750,63 +2989,42 @@ def gateway_phase(model, loop_trace=None):
         offset.append(gw.clock.now - time.perf_counter())
         ops.reset_launches()
         t0 = time.perf_counter() + 0.2
-        clients = [Client(port, t0, b["at"], {
-            k: b[k] for k in ("prompt_len", "max_new_tokens")})
-            for b in GATEWAY_BURST]
-        clients += [Client(port, t0, TRACE_AT + arrivals[r.rid],
+        clients = [Client(b["at"], {k: b[k] for k in ("prompt_len",
+                                                     "max_new_tokens")})
+                   for b in GATEWAY_BURST]
+        clients += [Client(TRACE_AT + arrivals[r.rid],
                            {"prompt_len": len(r.prompt),
                             "max_new_tokens": r.max_new}) for r in trace]
-        cancel = Client(port, t0, GATEWAY_CANCEL["at"],
+        cancel = Client(GATEWAY_CANCEL["at"],
                         {k: GATEWAY_CANCEL[k] for k in
                          ("prompt_len", "max_new_tokens")},
                         cancel_after=CANCEL_AFTER)
-        slow = Client(port, t0, GATEWAY_SLOW["at"],
+        slow = Client(GATEWAY_SLOW["at"],
                       {k: GATEWAY_SLOW[k] for k in
-                       ("prompt_len", "max_new_tokens")}, pause=wait_paused)
-        everyone = clients + [cancel, slow]
-        done = threading.Event()
-
-        def monitor():
-            while not done.is_set():
-                t = time.perf_counter()
-                try:
-                    health.append(http_get(port, "/healthz"))
-                except Exception as e:  # noqa: BLE001
-                    health.append((0, repr(e)))
-                if loop_trace is not None:
-                    loop_trace.polls.append((t, time.perf_counter()))
-                time.sleep(0.25)
-
-        mon = threading.Thread(target=monitor, daemon=True)
-        mon.start()
-        for c in everyone:
-            c.thread.start()
-        deadline = time.perf_counter() + GATEWAY_DEADLINE_S
-        while any(c.thread.is_alive() for c in everyone) and \
-                time.perf_counter() < deadline:
-            await asyncio.sleep(0.05)
+                       ("prompt_len", "max_new_tokens")}, pause=True)
+        child.start(port, t0, clients + [cancel, slow])
+        require((await loop.run_in_executor(None, child.read)).get(
+            "clients_done"), "gateway: the client process misspoke")
         # the disconnect's cancel reaches the engine at its next write
-        while gw._live and time.perf_counter() < deadline:
+        while gw._live and time.perf_counter() < t0 + GATEWAY_DEADLINE_S:
             await asyncio.sleep(0.05)
         launches = ops.launches()
-        done.set()
+        health.extend(await loop.run_in_executor(None, child.finish))
         metrics = await loop.run_in_executor(
             None, lambda: http_get(port, "/metrics"))
-        await loop.run_in_executor(None, mon.join, 5.0)
         await server.close()
         return clients, cancel, slow, launches, metrics
 
     torch.cuda.synchronize()
     gc.collect()
     gc.freeze()
-    if loop_trace is not None:
-        loop_trace.install()
     try:
         clients, cancel, slow, launches, metrics = asyncio.run(main())
     finally:
-        if loop_trace is not None:
-            loop_trace.remove()
         gc.unfreeze()
+        if child.proc.poll() is None:
+            child.proc.kill()
+            child.proc.wait()
     torch.cuda.synchronize()
     served_s = time.perf_counter() - t_phase
     require(not errors, f"gateway: the event loop caught {errors[:3]}")
@@ -2826,11 +3044,8 @@ def gateway_phase(model, loop_trace=None):
     resumed = [e for e in ex.log if e["resumed"]]
     launched = {k for k, n in launches.items() if n > 0}
     states = [h[1]["workers"] if h[0] == 200 else h for h in health]
-    windows, plans = [], collections.defaultdict(list)
     raw, net = serve_engine.token_stamp_lags(ex.log, eng.stream.events(),
-                                             offset[0], windows)
-    for e in ex.log:
-        plans[e["plan"]].append(e)
+                                             offset[0])
     # how far each lane was due after the end of the launch before it
     # fired (the double wait would put it a whole launch after)
     ends = sorted(e["host_end"] + offset[0] for e in ex.log)
@@ -2860,7 +3075,10 @@ def gateway_phase(model, loop_trace=None):
         if len(gaps) else None,
         heartbeat_s=gw.policy.heartbeat_s,
         heartbeat_timeout_s=gw.policy.heartbeat_timeout_s,
-        healthz_polls=len(health), clamped=gw.clock.stats.clamped,
+        healthz_polls=len(health),
+        clock_check={"parent_before": clock[0], "child": clock[1],
+                     "parent_after": clock[2]},
+        clamped=gw.clock.stats.clamped,
         dispatched=gw.clock.stats.dispatched)
     say("gateway", phase="latency", config=cfg.name,
         clock={"client": "host wall clock from the POST to each line",
@@ -2882,13 +3100,6 @@ def gateway_phase(model, loop_trace=None):
         if raw else None, lanes=len(lanes),
         lane_due_after_launch_end_ms_max=max(due_after) * 1e3
         if due_after else None)
-    if loop_trace is not None:
-        say("gateway", phase="loop_trace", config=cfg.name,
-            limit_ms=serve_engine.STAMP_P99_S * 1e3,
-            **loop_trace.report(
-                windows, net, offset[0], serve_engine.STAMP_P99_S,
-                [(min(e["t_start"] for e in es) - offset[0],
-                  max(e["host_end"] for e in es)) for es in plans.values()]))
     for rid, c in streams.items():
         require(c.lines[-1]["type"] == "finished",
                 f"gateway: request {rid}'s stream ended in {c.lines[-1]}")
@@ -3255,16 +3466,16 @@ def timed(phase):
 
 def gateway_runs(runs):
     """``--gateway-runs``: phase 9 alone, ``runs`` times in a row on one
-    granite-8b (after phase 4's serving run, as in the whole smoke), each
-    under a ``LoopTrace``.  A run that fails is reported and the next one
-    starts.  Returns each run's stamp lags (ms) or its failure."""
+    granite-8b (after phase 4's serving run, as in the whole smoke).  A
+    run that fails is reported and the next one starts.  Returns each
+    run's stamp lags (ms) or its failure."""
     model = init_full(get_config("granite-8b"))
     serve_full(model)
     out = []
     for i in range(runs):
         with timed(f"gateway run {i}"):
             try:
-                r = gateway_phase(model, LoopTrace())[1]
+                r = gateway_phase(model)[1]
             except PhaseFailed as e:
                 r = {"failed": str(e)}
         out.append(r)
@@ -3278,8 +3489,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
                                  "one GPU (every phase, with no options).")
     ap.add_argument("--gateway-runs", type=int, default=0,
-                    help="run only phase 9, this many times, each traced "
-                    "(``LoopTrace``), and print each run's stamp lags")
+                    help="run only phase 9, this many times, and print each "
+                    "run's stamp lags")
+    ap.add_argument("--logits-depths", action="store_true",
+                    help="run only the depth-and-seed table of Qwen2-VL's "
+                    "logits: kernel and plain paths in bf16 against a "
+                    "float32 plain path (ROADMAP C9)")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="run only phase 13 (after the build)")
     ap.add_argument("--only-cells", nargs="?", const=str(CELL_SEED),
                     metavar="SEEDS",
                     help="run only phase 12 (after the build); with "
@@ -3311,8 +3528,21 @@ def main(argv=None):
         if args.gateway_runs:
             runs = gateway_runs(args.gateway_runs)
             say("gateway", phase="runs", card=card, stamp_lags=runs,
+                cpus=os.cpu_count(),
                 p99_net_ms=[r.get("p99_net_ms") for r in runs])
             return 1 if any("failed" in r for r in runs) else 0
+        if args.logits_depths:
+            with timed("logits_depths"):
+                recs = logits_depths()
+            say("depths", phase="table", card=card, limit=TOL_LOGITS,
+                records=recs)
+            return 0
+        if args.only_mesh:
+            with timed("mesh"):
+                recs, launches = mesh_phase(gen, card)
+            say("mesh", phase="only", launches=launches,
+                kernels={k: list(v) for k, v in recs.items()})
+            return 0
         if args.only_cells:
             with timed("cells"):
                 recs, launches = cells_phase(gen, [
@@ -3344,6 +3574,11 @@ def main(argv=None):
         with timed("cells"):
             cells_attn, cells_launches = cells_phase(gen)
         launches.update(cells_launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with timed("mesh"):
+            mesh_attn, mesh_launches = mesh_phase(gen, card)
+        launches.update(mesh_launches)
         say("time", phase="total", seconds=time.perf_counter() - t_start)
     except PhaseFailed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -3385,7 +3620,8 @@ def main(argv=None):
                 kernels[-1][k] = r[k]
         for key, at in (("at_jamba_shapes", jamba_attn),
                         ("at_mixtral_shapes", mixtral_attn),
-                        *archs_attn.items(), *cells_attn.items()):
+                        *archs_attn.items(), *cells_attn.items(),
+                        *mesh_attn.items()):
             if name in at:
                 kernels[-1][key] = {
                     k: at[name][k] for k in (

@@ -3,8 +3,15 @@
 [arXiv:2401.04088; hf] — 56L, d_model=6144, 48H (GQA kv=8), expert
 d_ff=16384, vocab=32768.  SWA window 4096 bounds the KV cache, making
 long_500k decode sub-quadratic (O(window) per token).
+
+``one_card``: the published model in bf16 is 281.26 GB of weights, about
+5.0 GB a layer.  The cut keeps every width (heads, experts, expert d_ff,
+vocab, window) and cuts depth 56 -> 13: 65.91 GB in bf16 (14 layers would
+be 70.92 GB), which leaves the card room for the KV pool, the window's
+ring at ``long_500k`` and the plain path's MoE capacity buffers at the
+smoke's longest prompts.
 """
-from repro_torch.config import MoEConfig, ModelConfig, register
+from repro_torch.config import MoEConfig, ModelConfig, register, replace
 
 CONFIG = ModelConfig(
     name="mixtral-8x22b",
@@ -24,6 +31,8 @@ CONFIG = ModelConfig(
     source="[arXiv:2401.04088; hf]",
 )
 
+ONE_CARD_LAYERS = 13
+
 
 def reduced() -> ModelConfig:
     return ModelConfig(
@@ -42,4 +51,8 @@ def reduced() -> ModelConfig:
     )
 
 
-register(CONFIG, reduced)
+def one_card() -> ModelConfig:
+    return replace(CONFIG, num_layers=ONE_CARD_LAYERS)
+
+
+register(CONFIG, reduced, one_card)

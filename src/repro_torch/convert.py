@@ -64,11 +64,13 @@ def unstack(tree, cfg) -> dict:
     return state
 
 
-def model_from_reference(params, cfg, *, device="cpu",
-                         dtype=None) -> Transformer:
-    """Build the port's model from the reference's numpy parameter tree."""
+def model_from_reference(params, cfg, *, device="cpu", dtype=None,
+                         tp: int = 1) -> Transformer:
+    """Build the port's model from the reference's numpy parameter tree,
+    made at ``tp`` (its heads padded as the reference's ``init_model(...,
+    tp)`` pads them)."""
     dtype = dtype or getattr(torch, cfg.dtype)
-    model = Transformer(ParamInit(None, device, dtype), cfg)
+    model = Transformer(ParamInit(None, device, dtype), cfg, tp)
     dtypes = {k: t.dtype for k, t in model.state_dict().items()}
     model.load_state_dict({k: _tensor(v, dtypes.get(k, dtype))
                            for k, v in unstack(params, cfg).items()},
@@ -76,7 +78,8 @@ def model_from_reference(params, cfg, *, device="cpu",
     return model
 
 
-def train_state_from_reference(state, cfg, *, device="cpu") -> TrainState:
+def train_state_from_reference(state, cfg, *, device="cpu",
+                               tp: int = 1) -> TrainState:
     """The reference's ``TrainState`` (or a dict of its fields "params",
     "mu", "nu", "count", "step"), every leaf a numpy array, -> the port's
     trainable ``TrainState`` on ``device``; the moments keep their dtype."""
@@ -84,8 +87,8 @@ def train_state_from_reference(state, cfg, *, device="cpu") -> TrainState:
         state = {"params": state.params, "mu": state.opt.mu,
                  "nu": state.opt.nu, "count": state.opt.count,
                  "step": state.step}
-    model = model_from_reference(state["params"], cfg,
-                                 device=device).requires_grad_()
+    model = model_from_reference(state["params"], cfg, device=device,
+                                 tp=tp).requires_grad_()
 
     def moments(tree):
         return {k: _tensor(v, _dtype(v)).to(device)

@@ -515,7 +515,7 @@ class KernelExecutor(Executor):
         appended for the position it holds: its ring's block under a
         window (the same block, since a spare holds a position below W)."""
         page, window = self.serve.page_size, self.cfg.sliding_window
-        src, dst = [], []
+        pairs = []
         for rid, (spare, pos) in list(self._spare.items()):
             del self._spare[rid]
             try:
@@ -526,15 +526,15 @@ class KernelExecutor(Executor):
                 raise RuntimeError(
                     f"request {rid}: no block for position {pos} before "
                     f"its next decode step")
-            src.append(spare)
-            dst.append(blocks[ring_slots(pos, window) // page])
-        if src:
-            src, dst = self._ints(src, torch.int64), \
-                self._ints(dst, torch.int64)
-            for c in self.cache:
-                if "k" in c:
-                    c["k"][dst] = c["k"][src]
-                    c["v"][dst] = c["v"][src]
+            pairs.append((spare, blocks[ring_slots(pos, window) // page]))
+        # every pool's pages in one multi-tensor copy: an indexed copy per
+        # pool costs two launches and their host time each, and the index
+        # tensors two host-to-device copies (a model without attention
+        # layers has no pool)
+        pools = [c[n] for c in self.cache if "k" in c for n in "kv"]
+        if pairs and pools:
+            torch._foreach_copy_([t[d] for t in pools for _, d in pairs],
+                                 [t[s] for t in pools for s, _ in pairs])
 
     def _decode_inputs(self, decode, kv):
         """(tokens (B,1), cached lengths (B,), block tables padded to

@@ -288,8 +288,7 @@ STAMP_P99_S = 5e-3
 STAMP_MAX_S = 30e-3
 
 
-def token_stamp_lags(log, events, offset: float,
-                     windows: Optional[list] = None
+def token_stamp_lags(log, events, offset: float
                      ) -> "tuple[List[float], List[float]]":
     """For each ``TokenEvent`` in ``events``: how long after its lane's
     end it was stamped, on the gateway's clock (``offset``: its time less
@@ -299,8 +298,7 @@ def token_stamp_lags(log, events, offset: float,
     net of the time the host thread spent in between on plans (from the
     engine's view of each to its last launch's end: it was busy
     scheduling and launching, its own plan's later launches included, not
-    waiting).  ``windows``, if given, receives each lag's (lane end,
-    stamp) on the gateway's clock."""
+    waiting)."""
     plans = collections.defaultdict(list)
     for e in log:
         plans[e["plan"]].append(e)
@@ -324,8 +322,6 @@ def token_stamp_lags(log, events, offset: float,
                       for a, b in span.values())
         raw.append(ev.t - lane_end)
         net.append(ev.t - lane_end - between)
-        if windows is not None:
-            windows.append((lane_end, ev.t))
     return raw, net
 
 

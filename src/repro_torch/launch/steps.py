@@ -1,13 +1,16 @@
-"""Cell builders: (model x input shape) -> a step and the inputs it takes,
-on one card.
+"""Cell builders: (model x input shape x mesh) -> a step and the inputs it
+takes.
 
-Counterpart of ``repro/launch/steps.py``, restricted to what runs without
-a mesh: the serving cells.
+Counterpart of ``repro/launch/steps.py``.
 
+  train_4k    -> ``make_train_step`` (microbatches, remat; the state's
+                 parameters and moments updated in place)
   prefill_32k -> ``forward(inputs, positions, return_aux, last_only)``
   decode_32k  -> ``decode_forward`` over a paged pool, each sequence's
                  block table one contiguous run of blocks, through
                  ``DecodeGraphs`` (captured once per shape on the card)
+  long_500k   -> the decode cell with context-parallel KV: the pool's
+                 blocks split over the sequence (``seq`` -> the data axis)
   fused_pd    -> ``fused_pd_forward``: a prefill batch and a decode batch
                  in one step, the RAPID concurrent step
 
@@ -21,6 +24,22 @@ owns its cache (the reference passes it as an argument and donates it),
 and ``materialize`` fills it too: K/V and recurrent state drawn from the
 seed, as the reference's dry-run takes any cache of the right shape.
 
+Meshes.  Every builder takes ``mesh`` (None: one device, no DTensor) and
+``rules`` (default: the reference's for the cell, ``_rules``).
+Under a mesh the cell places the model's parameters as DTensors by the
+reference's rules (``_rules``, ``param_sharding`` with FSDP where
+``_serve_fsdp`` says so for serving and always for training), its inputs
+split over "batch", and its cache by ``cache_specs``; the model runs
+under ``sharding.spmd()`` with ``constrain`` at the reference's places,
+and the cell returns DTensors (``gather`` makes them whole).  The model
+must have been made at the cell's TP degree (``tp_for``).  A decode
+pool's blocks are split over the batch, or under context parallelism
+over the sequence; each chip's block tables and state rows hold its own
+ids.  On a one-chip mesh the decode cell's CUDA graphs capture the
+chip's own program (its local parameters and cache, the same tensors);
+on more chips the decode step runs eagerly.  The fused cell takes no
+mesh of more than one chip: its ``unified_pd`` step has no split form.
+
 The stub inputs.  Embeddings are unit normals.  Token positions count
 from 0.  M-RoPE positions follow Qwen2-VL's layout (``mrope_positions``):
 a text prefix, an image grid whose patches share one t and take their
@@ -29,24 +48,27 @@ the largest id so far; decode tokens continue the text.  The reference's
 cells never feed a sampled token back, and an ``embed_stub`` model has
 no token input, so every decode step (``decode_steps``) takes fresh
 seeded inputs, one more position and one more cached token.
-
-What it leaves out: meshes, shardings and donation; ``build_train_cell``
-and ``long_500k`` wait for A10's mesh half (``build_cell`` raises).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.config import SHAPES, ShapeConfig
 from repro_torch.kvcache import kv_pages_for
 from repro_torch.models import transformer as tf
-from repro_torch.models.attention import ring_table
+from repro_torch.models.attention import ring_pages, ring_table
 from repro_torch.models.decode_graph import DecodeGraphs, table_width
+from repro_torch.perfmodel.hw import TPU_V5E, HardwareSpec
+from repro_torch.training.optimizer import OptConfig
+from repro_torch.training.train_lib import (make_train_step,
+                                            train_state_from_model)
 
 PAGE = 16
 # a decode cell's sequences hold between half its length and this many
@@ -102,6 +124,110 @@ def cells_for_arch(cfg):
     if cfg.sub_quadratic:
         shapes.append(SHAPES["long_500k"])
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# Mesh rules (the reference's, ``repro/launch/steps.py:52-101``)
+# ---------------------------------------------------------------------------
+
+SMALL_MODEL_PARAMS = 2_000_000_000
+
+
+def _small_dp_only(cfg, shape: Optional[ShapeConfig]) -> bool:
+    """Sub-2B models (xlstm-125m) replicate their weights and run pure
+    data parallelism: at TP 16 their products would be 96 wide."""
+    return cfg is not None and cfg.param_count() < SMALL_MODEL_PARAMS
+
+
+def _rules(mesh, shape: ShapeConfig, cfg=None) -> sharding.ShardingRules:
+    rules = sharding.rules_for_mesh(mesh)
+    if _small_dp_only(cfg, shape):
+        axes = (("pod", "data", "model") if "pod" in mesh.mesh_dim_names
+                else ("data", "model"))
+        if shape.global_batch % mesh.size():
+            axes = axes[:-1]
+        return dataclasses.replace(rules, model=None, expert=None,
+                                   data=None, batch=axes)
+    if shape.kind == "long_decode":
+        # context parallelism: the cache's sequence over the data axis,
+        # otherwise idle at batch 1
+        return dataclasses.replace(rules, seq="data")
+    if shape.kind == "train":
+        # sequence parallelism: the inter-block residuals (and their
+        # remat checkpoints) split S over the TP axis
+        return dataclasses.replace(rules, seq="model")
+    return rules
+
+
+def tp_for(cfg, mesh, shape: Optional[ShapeConfig] = None) -> int:
+    """The TP degree a cell's model is made at: 1 without a mesh and
+    under the small-model DP-only policy, else the "model" axis."""
+    if mesh is None or (shape is not None and _small_dp_only(cfg, shape)):
+        return 1
+    return sharding.mesh_sizes(mesh)["model"]
+
+
+def _serve_fsdp(cfg, mesh, hw: HardwareSpec = TPU_V5E) -> bool:
+    """Serve TP-only (no FSDP, whose weight all-gathers run at every
+    decode token) whenever a chip's TP shard of the bf16 weights fits in
+    three quarters of ``hw``'s memory.  ``TPU_V5E`` gives the reference's
+    choices; ``H100`` the card's."""
+    tp = sharding.mesh_sizes(mesh)["model"]
+    return cfg.param_count() * 2 / tp > 0.75 * hw.hbm_bytes
+
+
+class Placed:
+    """A model placed on ``mesh`` for a cell of ``shape`` (or itself, with
+    no mesh): ``model`` its parameters as DTensors, ``constrain`` the
+    reference's hook, ``split`` an input over "batch", ``context`` what
+    the model runs in."""
+
+    def __init__(self, model, shape: ShapeConfig, mesh, *, fsdp: bool,
+                 rules: Optional[sharding.ShardingRules] = None):
+        self.mesh, self.cfg = mesh, model.cfg
+        self.model, self.rules = model, None
+        self.constrain = sharding.identity
+        if mesh is None:
+            return
+        cfg = model.cfg
+        tp = getattr(model, "tp", 1)
+        if rules is None and tp != tp_for(cfg, mesh, shape):
+            raise ValueError(f"{cfg.name} was made at tp {tp}; a "
+                             f"{shape.name} cell on this mesh runs at tp "
+                             f"{tp_for(cfg, mesh, shape)}")
+        self.rules = rules or _rules(mesh, shape, cfg)
+        self.pspecs = sharding.param_sharding(
+            tf.param_specs(cfg, tp),
+            {n: p.shape for n, p in model.named_parameters()}, mesh,
+            rules=self.rules, fsdp=fsdp, periods=cfg.num_periods)
+        self.model = sharding.shard_module(model, mesh, self.pspecs)
+        self.constrain = sharding.make_constrain(mesh, self.rules)
+
+    def pspec(self, spec, shape):
+        return sharding.spec_to_pspec(spec, self.mesh, self.rules, shape)
+
+    def split(self, t, spec=None):
+        """``t`` placed by ``spec`` (default: dim 0 over "batch")."""
+        if self.mesh is None or t is None:
+            return t
+        spec = spec or ("batch",) + (None,) * (t.dim() - 1)
+        return sharding.place(t, self.mesh, sharding.to_placements(
+            self.pspec(spec, t.shape), self.mesh))
+
+    def context(self):
+        return sharding.spmd() if self.mesh is not None else \
+            contextlib.nullcontext()
+
+
+def gather(x):
+    """DTensors made whole (in tuples, lists and dicts too)."""
+    if sharding.is_dtensor(x):
+        return x.full_tensor()
+    if isinstance(x, (tuple, list)):
+        return type(x)(gather(t) for t in x)
+    if isinstance(x, dict):
+        return {k: gather(v) for k, v in x.items()}
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +322,8 @@ class Cell:
                    Dict[str, torch.Tensor]]
     cache: Any = None
     graphs: Any = None
+    placed: Any = None
+    state: Any = None
 
     @property
     def arch(self) -> str:
@@ -212,16 +340,24 @@ def _model_dtype(model):
     return model.tok.dtype
 
 
-def build_prefill_cell(model, shape: ShapeConfig, *,
+def build_prefill_cell(model, shape: ShapeConfig, *, mesh=None,
+                       fsdp: Optional[bool] = None,
+                       hw: HardwareSpec = TPU_V5E, rules=None,
                        impl: str = "kernel") -> Cell:
     """``forward`` with ``return_aux`` and ``last_only``: (logits (B,1,Vp),
     per-layer K/V or final state)."""
     cfg = model.cfg
     B, S = shape.global_batch, shape.seq_len
+    if mesh is not None and fsdp is None:
+        fsdp = _serve_fsdp(cfg, mesh, hw)
+    placed = Placed(model, shape, mesh, fsdp=fsdp, rules=rules)
 
     def prefill_step(inputs, positions):
-        return tf.forward(model, inputs, positions, impl=impl,
-                          return_aux=True, last_only=True)
+        with placed.context():
+            return tf.forward(placed.model, placed.split(inputs),
+                              placed.split(positions), impl=impl,
+                              return_aux=True, last_only=True,
+                              constrain=placed.constrain)
 
     def draw(rng, device):
         return _prompt_args(cfg, rng, B, S, device, _model_dtype(model))
@@ -229,37 +365,117 @@ def build_prefill_cell(model, shape: ShapeConfig, *,
     ins = input_specs(cfg, shape)
     return Cell(cfg, shape.name, prefill_step,
                 {"inputs": ins["inputs"], "positions": ins["positions"]},
-                draw)
+                draw, placed=placed)
 
 
 class _PagedCache:
     """A decode batch's cache: the pools of ``B`` sequences of up to
     ``S`` tokens, each sequence's block table one contiguous run of
-    blocks (its ring's first W / page under a sliding window), padded to
-    ``table_width``, and state rows 0..B-1."""
+    blocks (its ring's first W / page under a sliding window, the only
+    blocks it takes), padded to ``table_width``, and state rows 0..B-1.
 
-    def __init__(self, model, B: int, S: int, page: int):
+    Under a mesh (``placed``) the whole cache is made as without one and
+    then placed (``place``): each pool's blocks over "batch" when the
+    batch divides, else over "seq" (context parallelism: batch 1, each
+    chip a slice of the sequence, ``offsets`` its first positions), its
+    KV heads as ``cache_specs`` say; the tables and state rows hold each
+    chip's own ids."""
+
+    def __init__(self, model, B: int, S: int, page: int, placed=None):
         cfg, dev = model.cfg, model.tok.device
         self.B, self.S, self.page = B, S, page
-        pages = kv_pages_for(S, page)
-        self.layers = tf.init_cache(cfg, B * pages, page, B, device=dev,
-                                    dtype=_model_dtype(model))
+        pages = ring_pages(cfg.sliding_window, page) or kv_pages_for(S, page)
+        self.whole = tf.init_cache(cfg, B * pages, page, B, device=dev,
+                                   dtype=_model_dtype(model),
+                                   tp=getattr(model, "tp", 1))
+        self.placed, self.offsets = placed, None
+        self.whole_blocks = B * pages
+        split = self._split(cfg, B, pages)    # chips sharing the blocks
+        per = B * pages // split
         rows = [ring_table(list(range(b * pages, (b + 1) * pages)),
                            cfg.sliding_window, page) for b in range(B)]
+        if self.cp:
+            rows = [list(range(per))]
+        else:
+            rows = [[i % per for i in r] for r in rows]
         width = table_width(len(rows[0]), cfg.sliding_window, page)
         self.tables = torch.tensor([r + [0] * (width - len(r))
                                     for r in rows], dtype=torch.int32,
                                    device=dev)
-        self.slots = torch.arange(B, device=dev)
+        self.slots = torch.arange(B, device=dev) % (B // self.bsplit)
+        self.place()
+
+    def _split(self, cfg, B, pages) -> int:
+        """Sets ``bsplit`` (chips splitting the batch) and ``cp`` (the pool
+        split over the sequence); returns the chips sharing the blocks."""
+        self.bsplit, self.cp, self.block_axes = 1, False, None
+        placed = self.placed
+        if placed is None or placed.mesh is None:
+            return 1
+        mesh, rules = placed.mesh, placed.rules
+        n_b = sharding._axis_size(mesh, rules.batch)
+        n_s = sharding._axis_size(mesh, rules.seq)
+        if B % n_b == 0:
+            self.bsplit, self.block_axes = n_b, rules.batch
+            return n_b
+        if n_s > 1 and pages % n_s == 0:
+            if B != 1:
+                raise NotImplementedError("context-parallel KV of more "
+                                          "than one sequence")
+            self.cp, self.block_axes = True, rules.seq
+            return n_s
+        return 1
+
+    def place(self) -> None:
+        """``layers`` (what the cell's step reads): the cache placed on
+        the mesh, or the whole cache without one."""
+        placed = self.placed
+        if placed is None or placed.mesh is None:
+            self.layers, self.tables_in, self.slots_in = \
+                self.whole, self.tables, self.slots
+            return
+        mesh = placed.mesh
+        specs = tf.cache_specs(placed.cfg, getattr(placed.model, "tp", 1))
+        out = []
+        for layer, spec in zip(self.whole, specs):
+            d = {}
+            for k, t in layer.items():
+                ps = list(placed.pspec(spec[k][1:], t.shape[1:])) \
+                    if isinstance(spec[k][0], tuple) else None
+                if ps is not None:     # a pool: its blocks as decided
+                    pspec = (self.block_axes,) + tuple(ps)
+                else:                  # state rows: split with the batch
+                    pspec = placed.pspec(spec[k], t.shape) \
+                        if self.bsplit > 1 else \
+                        (None,) + tuple(placed.pspec(spec[k][1:],
+                                                     t.shape[1:]))
+                d[k] = sharding.place(t, mesh, sharding.to_placements(
+                    pspec, mesh))
+            out.append(d)
+        self.layers = out
+        if self.cp:
+            self.tables_in = sharding.place(
+                self.tables, mesh, sharding.replicated(mesh))
+            n = sharding._axis_size(mesh, self.block_axes)
+            span = self.whole_blocks // n * self.page
+            self.offsets = sharding.place(
+                torch.arange(n, device=self.tables.device) * span, mesh,
+                sharding.to_placements((self.block_axes,), mesh))
+            self.slots_in = sharding.place(self.slots, mesh,
+                                           sharding.replicated(mesh))
+        else:
+            self.tables_in = placed.split(self.tables)
+            self.slots_in = placed.split(self.slots)
 
     def fill(self, seed: int) -> None:
         """Every K/V and state leaf drawn from ``seed``: unit normals (the
         state's stabilisers m too: any finite value is a state)."""
         dev = self.tables.device
         gen = torch.Generator(device=dev).manual_seed(seed)
-        for layer in self.layers:
+        for layer in self.whole:
             for t in layer.values():
                 t.normal_(generator=gen)
+        self.place()
 
     def lens(self, rng: np.random.Generator) -> np.ndarray:
         """Cached tokens per sequence, in [S/2, S - DECODE_ROOM]."""
@@ -267,28 +483,39 @@ class _PagedCache:
         return rng.integers(min(self.S // 2, hi), hi + 1, size=self.B)
 
 
-def build_decode_cell(model, shape: ShapeConfig, *, page: int = PAGE,
+def build_decode_cell(model, shape: ShapeConfig, *, mesh=None,
+                      page: int = PAGE, fsdp: Optional[bool] = None,
+                      hw: HardwareSpec = TPU_V5E, rules=None,
                       impl: str = "kernel") -> Cell:
     """One decode step of ``shape.global_batch`` sequences, each with up
-    to ``shape.seq_len`` tokens cached in the paged pool.  With ``impl``
-    "kernel" the step goes through ``DecodeGraphs`` (a CUDA graph per
-    shape on the card; eager on the CPU), with "ref" through the plain
-    ``decode_forward``.  Returns the logits (B, 1, Vp), valid until the
-    next step."""
+    to ``shape.seq_len`` tokens cached in the paged pool (``long_500k``:
+    context-parallel KV under a mesh).  With ``impl`` "kernel" the step
+    goes through ``DecodeGraphs`` (a CUDA graph per shape on the card;
+    eager on the CPU; under a mesh of one chip the chip's own program),
+    with "ref" through the plain ``decode_forward``.  Returns the logits
+    (B, 1, Vp), valid until the next step."""
     cfg = model.cfg
     B, S = shape.global_batch, shape.seq_len
-    cache = _PagedCache(model, B, S, page)
-    graphs = DecodeGraphs(model, cache.layers, max_batch=B) \
-        if impl == "kernel" else None
+    if mesh is not None and fsdp is None:
+        fsdp = _serve_fsdp(cfg, mesh, hw)
+    placed = Placed(model, shape, mesh, fsdp=fsdp, rules=rules)
+    cache = _PagedCache(model, B, S, page, placed)
+    graphs = None
+    if impl == "kernel" and (mesh is None or mesh.size() == 1):
+        # one chip: its program is the whole one, on the same tensors
+        graphs = DecodeGraphs(model, cache.whole, max_batch=B)
 
     def serve_step(inputs, positions, seq_lens):
         if graphs is not None:
             graphs.step(inputs, seq_lens, cache.tables, cache.slots,
                         positions)
             return graphs.logits
-        return tf.decode_forward(model, inputs, positions, cache.layers,
-                                 cache.tables, seq_lens, cache.slots,
-                                 impl=impl)[0]
+        with placed.context():
+            return tf.decode_forward(
+                placed.model, placed.split(inputs), placed.split(positions),
+                cache.layers, cache.tables_in, placed.split(seq_lens),
+                cache.slots_in, impl=impl, constrain=placed.constrain,
+                cp_offsets=cache.offsets)[0]
 
     def draw(rng, device):
         cache.fill(int(rng.integers(2 ** 31)))
@@ -296,10 +523,24 @@ def build_decode_cell(model, shape: ShapeConfig, *, page: int = PAGE,
                             _model_dtype(model))
 
     return Cell(cfg, shape.name, serve_step, input_specs(cfg, shape), draw,
-                cache, graphs)
+                cache, graphs, placed)
 
 
-def build_fused_pd_cell(model, *, prefill_batch: int = 2,
+def eager_decode_step(cell: Cell, inputs, positions, seq_lens,
+                      impl: str = "kernel"):
+    """A decode cell's step run eagerly through its placed model (DTensors
+    under a mesh, however many chips), not through its graphs: the
+    program the graphs of a one-chip mesh stand in for."""
+    placed, cache = cell.placed, cell.cache
+    with placed.context():
+        return tf.decode_forward(
+            placed.model, placed.split(inputs), placed.split(positions),
+            cache.layers, cache.tables_in, placed.split(seq_lens),
+            cache.slots_in, impl=impl, constrain=placed.constrain,
+            cp_offsets=cache.offsets)[0]
+
+
+def build_fused_pd_cell(model, *, mesh=None, prefill_batch: int = 2,
                         prefill_seq: int = 4096, decode_batch: int = 64,
                         decode_ctx: int = 8192, page: int = PAGE,
                         f_decode: float = 0.5,
@@ -310,6 +551,9 @@ def build_fused_pd_cell(model, *, prefill_batch: int = 2,
     ``fused_pd_forward`` (one ``unified_pd`` launch per attention layer,
     ``f_decode`` its decode share).  Returns (p_logits, aux, d_logits)."""
     cfg = model.cfg
+    if mesh is not None and mesh.size() > 1:
+        raise NotImplementedError("the fused cell on a mesh of more than "
+                                  "one chip (unified_pd has no split form)")
     Bp, Sp, Bd = prefill_batch, prefill_seq, decode_batch
     cache = _PagedCache(model, Bd, decode_ctx, page)
 
@@ -335,14 +579,60 @@ def build_fused_pd_cell(model, *, prefill_batch: int = 2,
     return Cell(cfg, "fused_pd", fused_step, args, draw, cache)
 
 
-def build_cell(model, shape: ShapeConfig, **kw) -> Cell:
+def build_train_cell(model, shape: ShapeConfig, *, mesh=None,
+                     fsdp: bool = True, opt: Optional[OptConfig] = None,
+                     microbatches: Optional[int] = None,
+                     remat: bool = True, rules=None) -> Cell:
+    """One ``make_train_step`` of ``model`` (trainable) over a batch of
+    ``shape``: the state (``cell.state``, parameters and moments placed
+    as the reference's ``train_state_specs``) is updated in place.  The
+    optimizer keeps its moments and accumulates its gradients in the
+    config's ``opt_dtype``, and the microbatches adapt to the mesh as the
+    reference's: each one still splits over every data-parallel row.
+    Returns the step's metrics."""
+    cfg = model.cfg
+    placed = Placed(model, shape, mesh, fsdp=fsdp, rules=rules)
+    opt = opt or OptConfig(moment_dtype=cfg.opt_dtype,
+                           grad_accum_dtype=cfg.opt_dtype)
+    dp = 1 if mesh is None else mesh.size() // getattr(model, "tp", 1)
+    mb = microbatches or max(1, min(cfg.train_microbatches,
+                                    shape.global_batch // dp))
+    step = make_train_step(cfg, opt, microbatches=mb, remat=remat,
+                           constrain=placed.constrain)
+    cell = None
+
+    def train_step(inputs, labels, positions):
+        with placed.context():
+            cell.state, metrics = step(cell.state, {
+                "inputs": placed.split(inputs),
+                "labels": placed.split(labels),
+                "positions": placed.split(positions)})
+        return metrics
+
+    def draw(rng, device):
+        B, S = shape.global_batch, shape.seq_len
+        dtype = _model_dtype(model)
+        args = _prompt_args(cfg, rng, B, S, device, dtype)
+        args["labels"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(B, S)).astype(np.int32)).to(device)
+        return args
+
+    with placed.context():
+        state = train_state_from_model(placed.model, opt)
+    cell = Cell(cfg, shape.name, train_step, input_specs(cfg, shape), draw,
+                placed=placed, state=state)
+    cell.microbatches = mb
+    return cell
+
+
+def build_cell(model, shape: ShapeConfig, mesh=None, **kw) -> Cell:
+    if shape.kind == "train":
+        return build_train_cell(model, shape, mesh=mesh, **kw)
     if shape.kind == "prefill":
-        return build_prefill_cell(model, shape, **kw)
-    if shape.kind == "decode":
-        return build_decode_cell(model, shape, **kw)
-    raise NotImplementedError(
-        f"{shape.name} ({shape.kind}): the train cell and the long-context "
-        f"decode need a mesh (ROADMAP A10's mesh half)")
+        return build_prefill_cell(model, shape, mesh=mesh, **kw)
+    if shape.kind in ("decode", "long_decode"):
+        return build_decode_cell(model, shape, mesh=mesh, **kw)
+    raise ValueError(f"{shape.name}: no such cell kind {shape.kind!r}")
 
 
 def decode_steps(cell: Cell, args: Dict[str, torch.Tensor], steps: int,

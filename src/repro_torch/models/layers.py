@@ -57,6 +57,33 @@ def chunk_size(n: int, chunk: int) -> int:
     return c
 
 
+def mm(x, w):
+    """x (..., k) @ w (k, n).  A DTensor x of more than two dims is folded
+    to one 2-D product first, as ``torch.matmul`` folds a plain tensor:
+    DTensor's matmul would broadcast w over x's leading dims (a copy of w
+    per row of the batch); against a w that every chip holds whole, each
+    chip multiplies its own rows."""
+    from repro_torch import sharding
+    if x.dim() > 2 and sharding.is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        last = x.dim() - 1
+        if all(pl == Replicate() for pl in w.placements) and not any(
+                pl == Shard(last) for pl in x.placements):
+            # w whole on every chip: each chip's rows, as they are split
+            return DTensor.from_local(
+                x.to_local() @ sharding.local_weight(w, x), x.device_mesh,
+                x.placements, run_check=False)
+        inner = [isinstance(pl, Shard) and 0 < pl.dim < x.dim() - 1
+                 for pl in x.placements]
+        if any(inner):     # a split inner dim would fold into a strided one
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if i else pl for i, pl in zip(inner,
+                                                          x.placements)])
+        return (x.reshape(-1, x.shape[-1]) @ w).view(*x.shape[:-1],
+                                                     w.shape[-1])
+    return x @ w
+
+
 def rmsnorm(x, w, eps: float = 1e-5):
     """f32 statistics, cast to x's dtype, then scale by w (reference order)."""
     dt = x.dtype
@@ -119,10 +146,80 @@ def apply_rope(x, cos, sin):
 
 
 def embed_tokens(model, tokens):
+    """(..., d) rows of the table (a vocab-split DTensor table on each
+    chip's rows: ``_embed_shards``)."""
+    from repro_torch import sharding
+    if sharding.is_dtensor(model.tok):
+        return _embed_shards(model.tok, tokens)
     return F.embedding(tokens.long(), model.tok)
+
+
+def _embed_shards(tok, tokens):
+    """The lookup under a mesh: the table gathered to its vocab split,
+    each chip reading the ids in its rows (zeros elsewhere), the rows
+    summed over the chips that split the vocab (a ``Partial`` sum)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch import sharding
+    mesh = tok.device_mesh
+    split = [isinstance(pl, Shard) and pl.dim == 0 for pl in tok.placements]
+    tok = tok.redistribute(mesh, [Shard(0) if s else Replicate()
+                                  for s in split])
+    rows = tok.to_local().shape[0]
+    n = 1
+    for i, s in enumerate(split):
+        n *= mesh.size(i) if s else 1
+    first = sharding.place(torch.arange(n, device=tok.device) * rows, mesh,
+                           [Shard(0) if s else Replicate() for s in split])
+
+    def lookup(table, ids, first):
+        ids = ids.long() - first
+        inside = (ids >= 0) & (ids < rows)
+        out = F.embedding(ids.clamp(0, rows - 1), table)
+        return out * inside[..., None].to(out.dtype)
+
+    if not sharding.is_dtensor(tokens):
+        tokens = sharding.place(tokens, mesh, sharding.replicated(mesh))
+    out = lookup(sharding.local_weight(tok, tokens), tokens.to_local(),
+                 first.to_local())
+    place = [Partial() if s else pl for s, pl in zip(split,
+                                                      tokens.placements)]
+    return DTensor.from_local(out, mesh, place, run_check=False)
 
 
 def lm_logits(model, x):
     """Final norm, then the (tied) LM head over the padded vocab."""
     w = model.tok.t() if model.cfg.tie_embeddings else model.lm_head
-    return rmsnorm(x, model.final_norm, model.cfg.norm_eps) @ w
+    return mm(rmsnorm(x, model.final_norm, model.cfg.norm_eps), w)
+
+
+def pick_shards(logits, labels):
+    """``logits.gather(-1, labels[..., None])[..., 0]`` for a DTensor whose
+    last dim (the vocab) may be split: each chip picks the labels in its
+    columns (zeros elsewhere), summed over the chips that split it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch import sharding
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    split = [isinstance(pl, Shard) and pl.dim == last
+             for pl in logits.placements]
+    keep = [pl if isinstance(pl, Shard) and pl.dim < last else
+            (Shard(last) if s else Replicate())
+            for s, pl in zip(split, logits.placements)]
+    logits = logits.redistribute(mesh, keep)
+    cols = logits.to_local().shape[-1]
+    n = 1
+    for i, s in enumerate(split):
+        n *= mesh.size(i) if s else 1
+    first = sharding.place(torch.arange(n, device=logits.device) * cols,
+                           mesh, [Shard(0) if s else Replicate()
+                                  for s in split])
+    labels = labels.redistribute(mesh, [
+        pl if isinstance(pl, Shard) and pl.dim < last else Replicate()
+        for pl in keep]) \
+        if sharding.is_dtensor(labels) else \
+        sharding.place(labels, mesh, sharding.replicated(mesh))
+    ids = labels.to_local().long() - first.to_local()
+    inside = (ids >= 0) & (ids < cols)
+    loc = logits.to_local().gather(-1, ids.clamp(0, cols - 1)[..., None])
+    loc = loc[..., 0] * inside.to(loc.dtype)
+    place = [Partial() if s else pl for s, pl in zip(split, keep)]
+    return DTensor.from_local(loc, mesh, place, run_check=False)

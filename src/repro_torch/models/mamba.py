@@ -25,9 +25,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding
 from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import check_impl
-from repro_torch.models.layers import ParamInit
+from repro_torch.models.layers import ParamInit, mm
 
 
 class Mamba(nn.Module):
@@ -55,11 +56,25 @@ class Mamba(nn.Module):
         self.out_proj = init.normal(din, d)
 
 
+def param_specs(cfg) -> dict:
+    """The logical axes of each parameter (the reference's specs): the
+    inner width over "model"."""
+    return {"in_proj": (None, "model"), "conv_w": (None, "model"),
+            "conv_b": ("model",), "x_proj": ("model", None),
+            "dt_proj": (None, "model"), "dt_bias": ("model",),
+            "A_log": ("model", None), "D": ("model",),
+            "out_proj": ("model", None)}
+
+
+STATE_SPECS = {"conv": ("batch", None, "model"),
+               "ssm": ("batch", "model", None)}
+
+
 def ssm_inputs(p: Mamba, cfg, xs):
     """xs (..., din) -> dt (..., din), Bm/Cm (..., ds), all float32."""
     R, ds = cfg.dt_rank, cfg.mamba.d_state
-    dt, Bm, Cm = torch.split(xs @ p.x_proj, [R, ds, ds], dim=-1)
-    dt = F.softplus((dt @ p.dt_proj + p.dt_bias).float())
+    dt, Bm, Cm = torch.split(mm(xs, p.x_proj), [R, ds, ds], dim=-1)
+    dt = F.softplus((mm(dt, p.dt_proj) + p.dt_bias).float())
     return dt, Bm.float(), Cm.float()
 
 
@@ -109,10 +124,33 @@ def prefill_mixer(p: Mamba, cfg, xz, *, impl: str, state=None):
                                                    state["ssm"])
     args = scan_args(p, cfg, xz, conv)
     scan = ops.ssm_scan if impl == "kernel" else ref.ssm_scan
-    y, h_last = scan(*args, h0=h0)
+    if sharding.is_dtensor(args[0]):
+        y, h_last = _scan_shards(scan, args, h0)
+    else:
+        y, h_last = scan(*args, h0=h0)
     y = y + args[0] * p.D
     y = y.to(xz.dtype) * F.silu(z)
     return y, {"conv": conv_tail(cfg, xs_raw, conv), "ssm": h_last}
+
+
+def _scan_shards(scan, args, h0):
+    """The scan under a mesh, on each chip's sequences with every channel
+    (the inputs gathered over the other axes): the scan is independent
+    across sequences."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def batch_only(t):
+        if t is None:
+            return None
+        return t.redistribute(t.device_mesh, [
+            pl if pl == Shard(0) and t.dim() == 3 else Replicate()
+            for pl in t.placements])
+
+    xs, dt, A, Bm, Cm = [batch_only(t) for t in args]
+    # A holds no batch dim: each chip's gradient of it is its sequences'
+    A = sharding.local_weight(A, xs)
+    return sharding.on_shards(lambda *a: scan(*a[:5], h0=a[5]), xs, dt, A,
+                              Bm, Cm, batch_only(h0), like=(xs, xs))
 
 
 def decode_mixer(p: Mamba, cfg, xz, state):
@@ -138,8 +176,9 @@ def mamba_forward(p: Mamba, cfg, x, *, impl: str = "kernel", state=None):
     """Prefill from a zero state, or from ``state`` {"conv" (B, d_conv-1,
     din), "ssm" (B, din, ds) f32}.  x (B, L, d) -> (out (B, L, d), final
     state)."""
-    y, state = prefill_mixer(p, cfg, x @ p.in_proj, impl=impl, state=state)
-    return y @ p.out_proj, state
+    y, state = prefill_mixer(p, cfg, mm(x, p.in_proj), impl=impl,
+                             state=state)
+    return mm(y, p.out_proj), state
 
 
 def mamba_decode_step(p: Mamba, cfg, x, state):

@@ -14,8 +14,17 @@ expert output back.  The expert products are the reference's
 buffers of N*C rows each.  Every shape follows from the input's shape
 and the config, so no step waits on the device.
 
-Expert partitioning (``moe_partition``) and the sharding specs are not
-ported: one card holds every expert.
+Expert partitioning (``moe_partition``) picks the reference's specs
+(``param_specs``): "ep" shards the experts over the data axis, "tp"
+replicates them there with d FSDP-sharded; both shard each expert's
+hidden dim over "model".  Under a mesh (DTensor inputs) the layer runs on
+each chip's tokens (``on_shards``): the experts are gathered over the
+data axis, each chip computes its hidden slice for its own groups of
+tokens, and the partial outputs are summed over "model".  The
+reference's GShard all-to-all (tokens to their experts' chips) is not
+ported: gathering the experts moves the weights, not the tokens.  The
+groups are the ones the whole batch would have (``moe_plan`` of every
+token), which each chip's share of the tokens holds whole.
 """
 from __future__ import annotations
 
@@ -24,7 +33,8 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.models.layers import ParamInit, act_fn
+from repro_torch import sharding
+from repro_torch.models.layers import ParamInit, act_fn, mm
 
 
 class DenseFFN(nn.Module):
@@ -39,17 +49,25 @@ class DenseFFN(nn.Module):
         self.w_out = init.normal(f, d)
 
 
-def init_dense_ffn(init: ParamInit, cfg) -> DenseFFN:
+def init_dense_ffn(init: ParamInit, cfg, tp: int = 1) -> DenseFFN:
     return DenseFFN(init, cfg)
 
 
-def dense_ffn(p: DenseFFN, cfg, x):
+def dense_specs(cfg) -> dict:
+    specs = {"w_in": (None, "model"), "w_out": ("model", None)}
+    if cfg.ffn_glu:
+        specs["w_gate"] = (None, "model")
+    return specs
+
+
+def dense_ffn(p: DenseFFN, cfg, x, constrain=sharding.identity):
     act = act_fn(cfg.act)
     if cfg.ffn_glu:
-        h = act(x @ p.w_gate) * (x @ p.w_in)
+        h = act(mm(x, p.w_gate)) * mm(x, p.w_in)
     else:
-        h = act(x @ p.w_in)
-    return h @ p.w_out
+        h = act(mm(x, p.w_in))
+    h = constrain(h, ("batch",) + (None,) * (x.dim() - 2) + ("model",))
+    return mm(h, p.w_out)
 
 
 class MoEFFN(nn.Module):
@@ -62,8 +80,9 @@ class MoEFFN(nn.Module):
     attention kernels would no longer move the logits of a random model.
     Weights converted from the reference (``convert.py``) are its own."""
 
-    def __init__(self, init: ParamInit, cfg):
+    def __init__(self, init: ParamInit, cfg, tp: int = 1):
         super().__init__()
+        self.tp = tp
         m = cfg.moe
         d, E, f = cfg.d_model, m.num_experts, m.d_ff_expert
         self.router = init.normal(d, E)
@@ -72,8 +91,27 @@ class MoEFFN(nn.Module):
         self.w_out = init.normal(E, f, d, scale=1.0 / math.sqrt(f))
 
 
-def init_moe(init: ParamInit, cfg) -> MoEFFN:
-    return MoEFFN(init, cfg)
+def init_moe(init: ParamInit, cfg, tp: int = 1) -> MoEFFN:
+    return MoEFFN(init, cfg, tp)
+
+
+def moe_partition(cfg, tp: int) -> str:
+    """'ep': experts sharded over the data axis, hidden over model.  'tp':
+    experts replicated over data with d FSDP-sharded, hidden over model:
+    where E does not divide the axis (Mixtral's 8 experts on 16)."""
+    m = cfg.moe
+    if m.partition != "auto":
+        return m.partition
+    return "ep" if m.num_experts % tp == 0 else "tp"
+
+
+def moe_specs(cfg, tp: int = 1) -> dict:
+    if moe_partition(cfg, tp) == "ep":
+        w_in, w_out = ("expert", None, "model"), ("expert", "model", None)
+    else:
+        w_in, w_out = (None, "data", "model"), (None, "model", "data")
+    return {"router": (None, None), "w_gate": w_in, "w_in": w_in,
+            "w_out": w_out}
 
 
 def moe_plan(T: int, moe, *, group_size: int = 256, dropless: bool = False,
@@ -134,9 +172,14 @@ def route(p: MoEFFN, cfg, x, *, group_size: int = 256,
 
 
 def moe_ffn(p: MoEFFN, cfg, x, *, group_size: int = 256,
-            dropless: bool = False, inference: bool = False):
+            dropless: bool = False, inference: bool = False,
+            constrain=sharding.identity):
     """x (..., d) -> (..., d): ``repro/models/moe.py`` ``moe_ffn``, drops
     included (``moe_plan`` gives the policy)."""
+    if sharding.is_dtensor(x):
+        return _moe_shards(p, cfg, x, group_size=group_size,
+                           dropless=dropless, inference=inference,
+                           constrain=constrain)
     m = cfg.moe
     act = act_fn(cfg.act)
     E, k, d = m.num_experts, m.top_k, x.shape[-1]
@@ -166,3 +209,47 @@ def moe_ffn(p: MoEFFN, cfg, x, *, group_size: int = 256,
     picked.masked_fill_(~kept[..., None], 0)             # dropped pairs: 0
     y = (gates.to(x.dtype)[..., None] * picked).sum(1)
     return y.view(x.shape)
+
+
+def _moe_shards(p: MoEFFN, cfg, x, *, group_size, dropless, inference,
+                constrain):
+    """``moe_ffn`` under a mesh (the module docstring): each chip routes
+    its own tokens in the whole batch's groups, with the experts gathered
+    over every axis but "model", which splits their hidden dim; the
+    partial outputs are summed over "model"."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    # the hidden dim split over "model" where the rules put it there
+    m = names.index("model") if "model" in names else None
+    split = m is not None and p.w_gate.placements[m] == Shard(2)
+
+    def layout(dim):
+        return [Shard(dim) if split and dim is not None and a == "model"
+                else Replicate() for a in names]
+
+    spec = ("batch",) + (None,) * (x.dim() - 1)
+    x = constrain(x, spec)
+    if split and x.placements[m] != Replicate():
+        x = x.redistribute(mesh, [Replicate() if i == m else pl
+                                  for i, pl in enumerate(x.placements)])
+    g = moe_plan(x.numel() // x.shape[-1], cfg.moe, group_size=group_size,
+                 dropless=dropless, inference=inference)[0]
+    if (x.to_local().numel() // x.shape[-1]) % g:
+        # a group spans chips: every chip routes every token
+        x = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    # with the hidden dim split, what reaches the output from a whole
+    # tensor is a partial sum on each chip, and so is its gradient
+    partial = (m,) if split else ()
+    local = sharding.Leaves(**{
+        name: sharding.local_weight(
+            getattr(p, name).redistribute(mesh, layout(dim)), x, partial)
+        for name, dim in (("router", None), ("w_gate", 2), ("w_in", 2),
+                          ("w_out", 1))})
+    # the chip's own groups, whole: a capacity sized for the global groups
+    y = moe_ffn(local, cfg, sharding.local_weight(x, x, partial),
+                group_size=g, dropless=dropless, inference=inference)
+    place = [Partial() if split and a == "model" else pl
+             for a, pl in zip(names, x.placements)]
+    y = DTensor.from_local(y, mesh, place, run_check=False)
+    return constrain(y, spec)

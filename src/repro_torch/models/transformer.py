@@ -57,6 +57,14 @@ writes its last min(S, W) tokens; a decode writes at ``seq_lens % W``
 before attention and reads min(seq_lens + 1, W) slots, as the
 reference's ring cache does.
 
+``tp`` pads the attention heads as the reference's ``tp`` does
+(``attention.py``); ``param_specs`` and ``cache_specs`` give every
+parameter's and cache leaf's logical axes, the reference's specs per
+layer.  Under a mesh the parameters and inputs are DTensors
+(``launch/steps.py`` places them) and ``constrain`` redistributes the
+activations at the reference's places; without one it is the identity,
+and every path computes what it computes at tp = 1 without a mesh.
+
 Only ``lm_loss`` builds an autograd graph; the serving entry points run
 under ``torch.no_grad()``, so a model made trainable (``requires_grad_()``)
 serves as before.
@@ -69,13 +77,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (ParamInit, chunk_size, embed_tokens,
-                                       lm_logits, rmsnorm)
+                                       lm_logits, pick_shards, rmsnorm)
 
 NEG_INF = -1e30
 XLSTM = ("mlstm", "slstm")
@@ -89,7 +98,7 @@ class Block(nn.Module):
     """``kind`` is the mixer: "attn", "mamba", "mlstm" or "slstm";
     ``ffn_kind`` the FFN: "dense", "moe" or "none" (no norm2, no ffn)."""
 
-    def __init__(self, init: ParamInit, cfg, pos: int):
+    def __init__(self, init: ParamInit, cfg, pos: int, tp: int = 1):
         super().__init__()
         self.kind, self.ffn_kind = cfg.mixer_at(pos), cfg.ffn_at(pos)
         if self.kind not in _MIXERS or \
@@ -97,18 +106,21 @@ class Block(nn.Module):
             raise ValueError(f"{cfg.name}: no such block (layer {pos}: "
                              f"{self.kind}/{self.ffn_kind})")
         self.norm1 = init.ones(cfg.d_model)
-        self.mixer = _MIXERS[self.kind](init, cfg)
+        self.mixer = _MIXERS[self.kind](init, cfg, tp) \
+            if self.kind == "attn" else _MIXERS[self.kind](init, cfg)
         if self.ffn_kind != "none":
             self.norm2 = init.ones(cfg.d_model)
-            self.ffn = _FFNS[self.ffn_kind](init, cfg)
+            self.ffn = _FFNS[self.ffn_kind](init, cfg, tp)
 
 
 class Transformer(nn.Module):
     """tok (vocab_padded, d) [tied LM head], lm_head (d, vocab_padded)
-    when untied, final_norm (d,), layers[i]: Block."""
+    when untied, final_norm (d,), layers[i]: Block; heads padded for
+    ``tp``."""
 
-    def __init__(self, init: ParamInit, cfg):
+    def __init__(self, init: ParamInit, cfg, tp: int = 1):
         super().__init__()
+        self.tp = tp
         if cfg.frontend not in FRONTENDS:
             raise ValueError(f"{cfg.name}: no such frontend "
                              f"{cfg.frontend!r}")
@@ -118,37 +130,91 @@ class Transformer(nn.Module):
             self.lm_head = init.normal(cfg.d_model, cfg.vocab_padded)
         self.final_norm = init.ones(cfg.d_model)
         self.layers = nn.ModuleList(
-            Block(init, cfg, i % cfg.period) for i in range(cfg.num_layers))
+            Block(init, cfg, i % cfg.period, tp)
+            for i in range(cfg.num_layers))
 
 
 def init_model(cfg, *, device, seed: int = 0, dtype=None,
-               generator=None) -> Transformer:
+               generator=None, tp: int = 1) -> Transformer:
     """Random weights drawn on ``device`` from a seeded torch.Generator
     (or the one given); ``dtype`` defaults to the config's."""
     dtype = dtype or getattr(torch, cfg.dtype)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
-        return Transformer(ParamInit(generator, device, dtype), cfg)
+        return Transformer(ParamInit(generator, device, dtype), cfg, tp)
 
 
-def embed_inputs(model: Transformer, inputs):
+def _mixer_specs(cfg, kind: str, tp: int) -> dict:
+    if kind == "attn":
+        return attn_mod.param_specs(cfg, tp)
+    if kind == "mamba":
+        return mamba_mod.param_specs(cfg)
+    return getattr(xlstm_mod, f"{kind}_specs")(cfg)
+
+
+def param_specs(cfg, tp: int = 1) -> dict:
+    """{parameter name: logical axes} of ``Transformer(cfg, tp)``: the
+    reference's ``init_model`` specs, each layer's without its stacked
+    period dim."""
+    specs = {"tok": ("model", None), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "model")
+    for i in range(cfg.num_layers):
+        pre = f"layers.{i}."
+        specs[pre + "norm1"] = (None,)
+        for k, v in _mixer_specs(cfg, cfg.mixer_at(i), tp).items():
+            specs[pre + "mixer." + k] = v
+        ffn = cfg.ffn_at(i)
+        if ffn != "none":
+            specs[pre + "norm2"] = (None,)
+            ffn_specs = moe_mod.dense_specs(cfg) if ffn == "dense" else \
+                moe_mod.moe_specs(cfg, tp)
+            for k, v in ffn_specs.items():
+                specs[pre + "ffn." + k] = v
+    return specs
+
+
+def cache_specs(cfg, tp: int = 1) -> list:
+    """Per layer, the logical axes of each cache leaf.  A pool's blocks
+    hold sequences' pages, so its block dim carries both "batch" and
+    "seq" (``launch/steps.py`` splits it over the one that divides); its
+    KV heads are split as the attention's (``attention.kv_spec``)."""
+    out = []
+    for i in range(cfg.num_layers):
+        kind = cfg.mixer_at(i)
+        if kind == "attn":
+            s = (("batch", "seq"), None, attn_mod.kv_spec(cfg, tp), None)
+            out.append({"k": s, "v": s})
+        elif kind == "mamba":
+            out.append(dict(mamba_mod.STATE_SPECS))
+        else:
+            out.append(dict(getattr(xlstm_mod,
+                                    f"{kind.upper()}_STATE_SPECS")))
+    return out
+
+
+def embed_inputs(model: Transformer, inputs, constrain=sharding.identity):
     """Tokens (B,S) through the embedding table, or an ``embed_stub``
     model's embeddings (B,S,d) cast to the model's dtype."""
     if model.cfg.frontend == "embed_stub":
         return inputs.to(model.tok.dtype)
-    return embed_tokens(model, inputs)
+    return constrain(embed_tokens(model, inputs),
+                     ("batch",) + (None,) * (inputs.dim()))
 
 
-def _ffn_residual(blk: Block, cfg, x, **moe_policy):
+def _ffn_residual(blk: Block, cfg, x, constrain=sharding.identity,
+                  **moe_policy):
     """x + ffn(rmsnorm(x)), or x without an FFN; an MoE layer routes x
     under ``moe_policy`` (``moe_ffn``'s ``dropless`` / ``inference``)."""
     if blk.ffn_kind == "none":
         return x
-    h = rmsnorm(x, blk.norm2, cfg.norm_eps)
+    h = constrain(rmsnorm(x, blk.norm2, cfg.norm_eps),
+                  ("batch",) + (None,) * (x.dim() - 1))
     if blk.ffn_kind == "dense":
-        return x + moe_mod.dense_ffn(blk.ffn, cfg, h)
-    return x + moe_mod.moe_ffn(blk.ffn, cfg, h, **moe_policy)
+        return x + moe_mod.dense_ffn(blk.ffn, cfg, h, constrain)
+    return x + moe_mod.moe_ffn(blk.ffn, cfg, h, constrain=constrain,
+                               **moe_policy)
 
 
 def _read_state(c, slots):
@@ -174,65 +240,79 @@ def _page(cache) -> Optional[int]:
 
 
 def _block(blk: Block, cfg, x, positions, impl: str,
-           inference: bool = False):
+           inference: bool = False, constrain=sharding.identity):
     """One block over full sequences: (x out, the mixer's K/V or final
     state).  ``inference`` picks an MoE layer's capacity policy."""
-    h = rmsnorm(x, blk.norm1, cfg.norm_eps)
+    # the sequence gathered at the block's entry (Megatron-SP), the
+    # reference's hint
+    h = constrain(rmsnorm(x, blk.norm1, cfg.norm_eps), ("batch", None, None))
     if blk.kind == "attn":
         out, (k, v) = attn_mod.full_attention(blk.mixer, cfg, h, positions,
-                                              impl=impl)
+                                              impl=impl, constrain=constrain)
         state = {"k": k, "v": v}
     elif blk.kind == "mamba":
         out, state = mamba_mod.mamba_forward(blk.mixer, cfg, h, impl=impl)
-    elif blk.kind == "mlstm":
-        out, state = xlstm_mod.mlstm_forward(blk.mixer, cfg, h)
     else:
-        out, state = xlstm_mod.slstm_forward(blk.mixer, cfg, h)
-    return _ffn_residual(blk, cfg, x + out, inference=inference), state
+        scan = getattr(xlstm_mod, f"{blk.kind}_forward")
+        if sharding.is_dtensor(h):
+            out, state = _xlstm_shards(blk, cfg, h, scan)
+        else:
+            out, state = scan(blk.mixer, cfg, h)
+    x = _ffn_residual(blk, cfg, x + out, constrain, inference=inference)
+    # the inter-block residual split over the sequence where the rules
+    # say so (training: "seq" -> "model")
+    return constrain(x, ("batch", "seq", None)), state
 
 
 @torch.no_grad()
 def forward(model: Transformer, inputs, positions, *, impl: str = "kernel",
-            return_aux: bool = False, last_only: bool = False):
+            return_aux: bool = False, last_only: bool = False,
+            constrain=sharding.identity):
     """inputs (B,S) tokens or (B,S,d) embeddings, positions (B,S) or
     (B,S,3).  Returns logits
     (B,S|1,vocab_padded), or (logits, aux) with ``return_aux`` where aux
     is a per-layer list: {"k", "v"} (B,S,Hkv,D) for an attention layer,
     the final state for a recurrent one ({"conv", "ssm"} Mamba, {"C",
     "n", "m"} mLSTM, {"c", "n", "h", "m"} sLSTM)."""
-    x = embed_inputs(model, inputs)
+    x = embed_inputs(model, inputs, constrain)
     aux = []
     for blk in model.layers:
         # return_aux is the serving prefill: the inference capacity policy
         x, state = _block(blk, model.cfg, x, positions, impl,
-                          inference=return_aux)
+                          inference=return_aux, constrain=constrain)
         if return_aux:
             aux.append(state)
     if last_only:
         x = x[:, -1:]
-    logits = lm_logits(model, x)
+    logits = constrain(lm_logits(model, x), ("batch", None, "model"))
     return (logits, aux) if return_aux else logits
 
 
-def _block_out(blk: Block, cfg, x, positions, impl: str):
-    return _block(blk, cfg, x, positions, impl)[0]
+def _block_out(blk: Block, cfg, x, positions, impl: str,
+               constrain=sharding.identity):
+    return _block(blk, cfg, x, positions, impl, constrain=constrain)[0]
 
 
-def _ce_sum(model: Transformer, x, labels):
+def _ce_sum(model: Transformer, x, labels, constrain=sharding.identity):
     """Summed cross-entropy of one chunk: the LM head in float32, padded
     vocab columns at NEG_INF."""
     cfg = model.cfg
-    logits = lm_logits(model, x).float()
+    logits = constrain(lm_logits(model, x).float(),
+                       ("batch", None, "model"))
     if cfg.vocab_padded != cfg.vocab_size:
         logits = logits.masked_fill(
             torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size,
             NEG_INF)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if sharding.is_dtensor(logits):
+        gold = pick_shards(logits, labels)
+    else:
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
 
 
 def lm_loss(model: Transformer, tokens, labels, positions, *,
-            remat: bool = True, ce_chunk: int = 512):
+            remat: bool = True, ce_chunk: int = 512,
+            constrain=sharding.identity):
     """Mean next-token cross-entropy over B*S: tokens, labels, positions
     (B,S).  The trunk runs without the LM head, each layer checkpointed
     under ``remat`` (its activations recomputed in the backward; an sLSTM
@@ -249,27 +329,31 @@ def lm_loss(model: Transformer, tokens, labels, positions, *,
     whole stacked weights out of the loop; eager PyTorch runs each layer's
     ops where they are written and hoists nothing, so none is needed."""
     cfg = model.cfg
-    x = embed_inputs(model, tokens)
+    x = embed_inputs(model, tokens, constrain)
     for blk in model.layers:
         # an sLSTM layer checkpoints its token loop in chunks itself: under
         # the layer's remat that loop, one small launch per op and token,
         # would run forward three times instead of twice
         if remat and blk.kind != "slstm":
             x = checkpoint(_block_out, blk, cfg, x, positions, "ref",
-                           use_reentrant=False)
+                           constrain, use_reentrant=False)
         else:
-            x = _block_out(blk, cfg, x, positions, "ref")
+            x = _block_out(blk, cfg, x, positions, "ref", constrain)
+    # the sequence gathered for the head's chunks (split over it in
+    # training under a mesh)
+    x = constrain(x, ("batch", None, None))
     B, S, _ = x.shape
     c = chunk_size(S, ce_chunk)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, c):
         total = total + checkpoint(_ce_sum, model, x[:, s0:s0 + c],
-                                   labels[:, s0:s0 + c], use_reentrant=False)
+                                   labels[:, s0:s0 + c], constrain,
+                                   use_reentrant=False)
     return total / (B * S)
 
 
 def init_cache(cfg, num_blocks: int, page: int, slots: int, *,
-               device, dtype=None):
+               device, dtype=None, tp: int = 1):
     """A fresh cache: per attention layer a zeroed paged pool {"k", "v"},
     each (num_blocks, page, Hkv, D); per recurrent layer the zero state of
     ``slots`` decode slots (the module docstring), Mamba's conv window in
@@ -277,7 +361,7 @@ def init_cache(cfg, num_blocks: int, page: int, slots: int, *,
     must divide it (the ring's slots are whole pages)."""
     attn_mod.ring_pages(cfg.sliding_window, page)
     dtype = dtype or getattr(torch, cfg.dtype)
-    shape = (num_blocks, page, cfg.kv_heads_padded(1), cfg.head_dim)
+    shape = (num_blocks, page, cfg.kv_heads_padded(tp), cfg.head_dim)
     cache = []
     for i in range(cfg.num_layers):
         kind = cfg.mixer_at(i)
@@ -328,30 +412,93 @@ def write_prefill_to_cache(cache, aux, block_tables, slots, *,
 
 @torch.no_grad()
 def decode_forward(model: Transformer, inputs, positions, cache,
-                   block_tables, seq_lens, slots, *, impl: str = "kernel"):
+                   block_tables, seq_lens, slots, *, impl: str = "kernel",
+                   constrain=sharding.identity, cp_offsets=None):
     """One-token decode.  inputs (B,1) tokens or (B,1,d) embeddings;
     positions (B,1) or (B,1,3); block_tables (B,max_pages) int32 (ring
     tables under a window); seq_lens (B,) int32 tokens already cached;
     slots (B,) int64 the recurrent state row of each sequence.
     Returns (logits (B,1,vocab_padded), cache) — the cache is updated in
-    place."""
+    place.  Under a mesh (``attention.decode_attention``) the tables hold
+    each chip's block ids, the slots each chip's rows, and a pool split
+    over the sequence takes ``cp_offsets``."""
     cfg = model.cfg
     if cfg.sliding_window:
         attn_mod.check_ring_tables(block_tables, cfg.sliding_window,
                                    _page(cache))
-    x = embed_inputs(model, inputs)
+    x = embed_inputs(model, inputs, constrain)
     for blk, c in zip(model.layers, cache):
-        h = rmsnorm(x, blk.norm1, cfg.norm_eps)
+        h = constrain(rmsnorm(x, blk.norm1, cfg.norm_eps),
+                      ("batch", None, None))
         if blk.kind == "attn":
             out = attn_mod.decode_attention(blk.mixer, cfg, h, positions,
                                             c["k"], c["v"], block_tables,
-                                            seq_lens, impl=impl)
+                                            seq_lens, impl=impl,
+                                            constrain=constrain,
+                                            cp_offsets=cp_offsets)
+        elif sharding.is_dtensor(h):
+            out = _state_step_shards(blk, cfg, h, c, slots)
         else:
             out, state = _DECODE_STEPS[blk.kind](blk.mixer, cfg, h,
                                                  _read_state(c, slots))
             _write_state(c, slots, state)
-        x = _ffn_residual(blk, cfg, x + out, dropless=True)
+        x = _ffn_residual(blk, cfg, constrain(x + out, ("batch", None, None)),
+                          constrain, dropless=True)
+        x = constrain(x, ("batch", None, None))
     return lm_logits(model, x), cache
+
+
+def _xlstm_shards(blk: Block, cfg, h, scan):
+    """An xLSTM mixer over full sequences under a mesh, on each chip's
+    sequences with the layer's weights gathered (its scans are
+    sequential in time and independent across sequences): (out, final
+    state), split as the batch is."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = h.device_mesh
+    h = h.redistribute(mesh, [pl if pl == Shard(0) else Replicate()
+                              for pl in h.placements])
+    weights = sharding.Leaves(**{
+        n: sharding.local_weight(t.redistribute(
+            mesh, sharding.replicated(mesh)), h)
+        for n, t in blk.mixer.named_parameters()})
+    out, state = scan(weights, cfg, h.to_local())
+    names = list(state)
+    got = sharding.on_shards(lambda: (out, *state.values()),
+                             like=(h,) * (len(names) + 1))
+    return got[0], dict(zip(names, got[1:]))
+
+
+def _state_step_shards(blk: Block, cfg, h, c, slots):
+    """A recurrent layer's decode step under a mesh: the layer's weights
+    and its state rows gathered to each chip's own sequences (the rows
+    split as the batch is; ``slots`` the chip's own row ids), the step
+    taken on them, and the new rows written back into the cache's shards,
+    in place."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = h.device_mesh
+
+    def batch_only(t):
+        return t.redistribute(mesh, [pl if pl == Shard(0) else Replicate()
+                                     for pl in t.placements])
+
+    h = batch_only(h)
+    weights = sharding.Leaves(**{
+        n: t.redistribute(mesh, sharding.replicated(mesh)).to_local()
+        for n, t in blk.mixer.named_parameters()})
+    whole = [batch_only(t) for t in c.values()]
+
+    def step(h, slots, *rows):
+        state = dict(zip(c, rows))
+        out, new = _DECODE_STEPS[blk.kind](weights, cfg, h,
+                                           _read_state(state, slots))
+        return (out, *(new[k].to(state[k].dtype) for k in c))
+
+    out, *new = sharding.on_shards(step, h, slots, *whole,
+                                   like=(h, *whole))
+    for t, rows in zip(c.values(), new):
+        t.to_local()[slots.to_local()] = \
+            rows.redistribute(mesh, t.placements).to_local()
+    return out
 
 
 @torch.no_grad()

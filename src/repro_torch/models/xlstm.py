@@ -75,6 +75,18 @@ class MLSTM(nn.Module):
         self.w_down = init.normal(din, d)
 
 
+def mlstm_specs(cfg) -> dict:
+    """The logical axes of each parameter (the reference's specs)."""
+    return {"w_up": (None, "model"), "wq": (None, "model"),
+            "wk": (None, "model"), "wv": (None, "model"),
+            "w_i": (None, None), "b_i": (None,), "w_f": (None, None),
+            "b_f": (None,), "w_down": ("model", None)}
+
+
+MLSTM_STATE_SPECS = {"C": ("batch", None, None, None),
+                     "n": ("batch", None, None), "m": ("batch", None)}
+
+
 def mlstm_init_state(cfg, batch: int, *, device):
     _, H, Dh = mlstm_dims(cfg)
     f32 = dict(device=device, dtype=torch.float32)
@@ -205,6 +217,19 @@ class SLSTM(nn.Module):
         self.up_gate = init.normal(d, f)
         self.up = init.normal(d, f)
         self.down = init.normal(f, d)
+
+
+def slstm_specs(cfg) -> dict:
+    """The logical axes of each parameter (the reference's specs)."""
+    specs = {"up_gate": (None, "model"), "up": (None, "model"),
+             "down": ("model", None)}
+    for g in GATES:
+        specs.update({f"w_{g}": (None, "model"), f"r_{g}": (None, None, None),
+                      f"b_{g}": (None,)})
+    return specs
+
+
+SLSTM_STATE_SPECS = {k: ("batch", None) for k in ("c", "n", "h", "m")}
 
 
 def slstm_init_state(cfg, batch: int, *, device):

@@ -11,11 +11,13 @@ the copy (and for the previous save, at the next one), and keeps the
 
 A tree is a ``TrainState`` (its leaves ``params/<name>``, ``mu/<name>``,
 ``nu/<name>``, ``count`` and ``step``), a dict of trees, or a leaf: a
-tensor or a numpy array.  Leaves are stored whole.  Restoring builds a
-new tree like the given one, each leaf on the device given (the like
-leaf's, by default) in the like leaf's dtype: the port's counterpart of
-the reference's ``restore_checkpoint(..., shardings=)`` on one card.
-Resharding over a mesh waits for the port's sharding.
+tensor (a DTensor too) or a numpy array.  Leaves are stored whole: a
+DTensor is gathered first, so a checkpoint holds no trace of the mesh it
+was saved from.  Restoring builds a new tree like the given one, each
+leaf on the device given (the like leaf's, by default) in the like
+leaf's dtype, and where the like leaf is a DTensor, placed on its mesh
+with its placements: the counterpart of the reference's
+``restore_checkpoint(..., shardings=)``, onto a mesh of any shape.
 
 ``convert.read_reference_checkpoint`` reads a directory the reference
 wrote, whose leaf names follow its stacked parameter tree.
@@ -56,11 +58,16 @@ def _rebuild(like, leaves: Dict[str, Any], prefix: str = ""):
     return leaves[prefix[:-1]]
 
 
+def _whole(leaf):
+    """A DTensor leaf gathered whole; any other leaf as it is."""
+    return leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf
+
+
 def to_numpy(leaf) -> np.ndarray:
     """A leaf on the host as numpy; bfloat16 as its uint16 view."""
     if isinstance(leaf, np.ndarray):
         return leaf
-    t = leaf.detach().cpu()
+    t = _whole(leaf).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -144,8 +151,12 @@ def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
         t = from_numpy(arr, entry["dtype"])
         if isinstance(leaf, np.ndarray):
             out[name] = t.numpy().astype(leaf.dtype)
-        else:
-            out[name] = t.to(device=device or leaf.device, dtype=leaf.dtype)
+            continue
+        t = t.to(device=device or leaf.device, dtype=leaf.dtype)
+        if hasattr(leaf, "device_mesh"):
+            from torch.distributed.tensor import distribute_tensor
+            t = distribute_tensor(t, leaf.device_mesh, leaf.placements)
+        out[name] = t
     return _rebuild(like, out)
 
 
@@ -170,7 +181,7 @@ class CheckpointManager:
         the tensors next), then writes them, on a thread when async."""
         self.wait()
         host = {name: np.array(leaf) if isinstance(leaf, np.ndarray) else
-                leaf.detach().to("cpu", copy=True)
+                _whole(leaf).detach().to("cpu", copy=True)
                 for name, leaf in leaves(tree).items()}
         if self.async_save:
             self._thread = threading.Thread(

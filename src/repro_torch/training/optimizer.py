@@ -73,10 +73,8 @@ def adamw_init(params: Dict[str, torch.Tensor], opt: OptConfig) -> AdamWState:
     dt = getattr(torch, opt.moment_dtype)
     dev = next(iter(params.values())).device
     return AdamWState(
-        mu={n: torch.zeros(p.shape, dtype=dt, device=p.device)
-            for n, p in params.items()},
-        nu={n: torch.zeros(p.shape, dtype=dt, device=p.device)
-            for n, p in params.items()},
+        mu={n: torch.zeros_like(p, dtype=dt) for n, p in params.items()},
+        nu={n: torch.zeros_like(p, dtype=dt) for n, p in params.items()},
         count=torch.zeros((), dtype=torch.int32, device=dev))
 
 

@@ -16,6 +16,13 @@ run on across its stacked layers when a layer's leaf is not a multiple of
 
 Training runs the plain versions (``lm_loss``'s ``impl="ref"``, as the
 reference trains): no hand-written kernel has a backward.
+
+Under a mesh the parameters, moments and batch are DTensors
+(``launch/steps.py`` ``build_train_cell``), ``constrain`` is the
+reference's hook, and the microbatches are the reference's rows of the
+batch, each placed as the batch was; the accumulators and moments take
+their parameters' placements (``train_state_specs``: the moments mirror
+the parameters).
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Callable, Dict
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.models.layers import ParamInit
 from repro_torch.models.transformer import Transformer, init_model, lm_loss
 from repro_torch.training.compression import (compress_gradients,
@@ -52,11 +60,27 @@ class TrainState:
         """A new state of the same model config over ``tree``'s tensors
         (the model's parameters are those tensors, not copies)."""
         model = Transformer(ParamInit(None, "meta", self.model.tok.dtype),
-                            self.model.cfg)
+                            self.model.cfg, getattr(self.model, "tp", 1))
         model.load_state_dict(tree["params"], strict=True, assign=True)
         model.requires_grad_(self.model.tok.requires_grad)
         return TrainState(model, AdamWState(tree["mu"], tree["nu"],
                                             tree["count"]), tree["step"])
+
+
+def train_state_specs(param_specs: dict) -> dict:
+    """The logical axes of a ``TrainState``'s leaves (``TrainState.tree``):
+    the moments mirror the parameters; the counts are scalars."""
+    return {"params": dict(param_specs), "mu": dict(param_specs),
+            "nu": dict(param_specs), "count": (), "step": ()}
+
+
+def train_state_from_model(model: Transformer, opt: OptConfig) -> TrainState:
+    """A fresh state (zero moments, step 0) over ``model``'s parameters,
+    DTensors or not."""
+    params = dict(model.named_parameters())
+    dev = next(iter(params.values())).device
+    return TrainState(model, adamw_init(params, opt),
+                      torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def init_train_state(cfg, opt: OptConfig, *, device, seed: int = 0,
@@ -69,8 +93,23 @@ def init_train_state(cfg, opt: OptConfig, *, device, seed: int = 0,
                       torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _microbatch(v, i: int, mb: int):
+    """Microbatch i of mb of ``v`` along B: rows i*n..(i+1)*n, as the
+    reference's split.  Under a mesh the batch is gathered and the rows
+    placed as the batch was (an MoE layer's groups, and so its drops,
+    follow which rows share a microbatch)."""
+    n = v.shape[0] // mb
+    if sharding.is_dtensor(v):
+        if mb == 1:
+            return v
+        return sharding.place(v.full_tensor()[i * n:(i + 1) * n],
+                              v.device_mesh, v.placements)
+    return v[i * n:(i + 1) * n]
+
+
 def make_train_step(cfg, opt: OptConfig, *, microbatches: int = 1,
-                    remat: bool = True, compress_grads: bool = False) -> Callable:
+                    remat: bool = True, compress_grads: bool = False,
+                    constrain=sharding.identity) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: {"inputs" (B,S) int32 tokens, "labels" (B,S) int32,
@@ -87,20 +126,33 @@ def make_train_step(cfg, opt: OptConfig, *, microbatches: int = 1,
             raise ValueError(f"batch {B} does not split into {mb} "
                              "microbatches")
         params = state.params
-        acc = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+        acc = {n: torch.zeros_like(p, dtype=acc_dt)
                for n, p in params.items()}
         loss_acc = torch.zeros((), dtype=torch.float32,
                                device=state.step.device)
-        n = B // mb
         for i in range(mb):
-            part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            part = {k: _microbatch(v, i, mb) for k, v in batch.items()}
             with torch.enable_grad():
                 loss = lm_loss(state.model, part["inputs"], part["labels"],
-                               part["positions"], remat=remat)
-                grads = torch.autograd.grad(loss, list(params.values()))
+                               part["positions"], remat=remat,
+                               constrain=constrain)
+                # an ``embed_stub`` model never reads its token table:
+                # its gradient is zero, as ``jax.grad`` gives it
+                grads = torch.autograd.grad(loss, list(params.values()),
+                                            allow_unused=True,
+                                            materialize_grads=True)
             with torch.no_grad():
-                for a, g in zip(acc.values(), grads):
-                    a.add_((g / mb).to(acc_dt))
+                for name, g in zip(list(acc), grads):
+                    g = (g / mb).to(acc_dt)
+                    if sharding.is_dtensor(g):
+                        # a partial sum reduced to its accumulator's
+                        # placements, and added out of place: a replicated
+                        # DTensor's zeros may be one local tensor that
+                        # every simulated chip shares
+                        acc[name] = acc[name] + g.redistribute(
+                            g.device_mesh, acc[name].placements)
+                    else:
+                        acc[name].add_(g)
             del grads
             loss_acc = loss_acc + loss.detach() / mb
         if compress_grads:

@@ -336,10 +336,22 @@ def test_cells_run_on_the_cpu(models):
 
 
 def test_cells_leave_out_the_mesh():
+    """Without a mesh the train and long_500k cells build on one device
+    (the train cell over the model, made trainable); only the fused cell
+    leaves out a mesh of more than one chip (``unified_pd`` has no split
+    form)."""
     model = _models("musicgen-large")[0]
-    for name in ("train_4k", "long_500k"):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            steps.build_cell(model, SHAPES[name])
+    train = steps.build_cell(model.requires_grad_(), ShapeConfig(
+        "train_4k", 16, 2, "train"))
+    assert train.state is not None and train.placed.mesh is None
+    model.requires_grad_(False)
+    long = steps.build_cell(model, ShapeConfig("long_500k", 64, 1,
+                                               "long_decode"))
+    assert long.cache.B == 1 and not long.cache.cp
+    from repro_torch.launch.mesh import make_fake_mesh
+    with pytest.raises(NotImplementedError, match="mesh"):
+        steps.build_fused_pd_cell(model, mesh=make_fake_mesh(
+            (2, 2), ("data", "model")))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -351,3 +363,77 @@ def test_serving_entry_points_refuse_embeddings(arch):
             main(["--arch", arch, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="launch/steps.py"):
         serve_real.serve(_models(arch)[0], [])
+
+
+# ---------------------------------------------------------------------------
+# the mesh rules (``repro/launch/steps.py:52-101``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_cell_rules_match_reference(arch):
+    """``_rules``, ``tp_for``, ``_small_dp_only`` and ``_serve_fsdp`` (on
+    the reference's ``TPU_V5E``) give the reference's answers for every
+    shape of the arch on both production meshes; ``cells_for_arch`` keeps
+    the sub-quadratic rule."""
+    from jax.sharding import AbstractMesh
+    from repro.config import SHAPES as JAX_SHAPES
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.perfmodel.hw import TPU_V5E
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    assert [s.name for s in steps.cells_for_arch(cfg)] == \
+        [s.name for s in jax_steps.cells_for_arch(jcfg)]
+    for dims, axes in (((16, 16), ("data", "model")),
+                       ((2, 16, 16), ("pod", "data", "model"))):
+        mesh, jmesh = make_fake_mesh(dims, axes), AbstractMesh(dims, axes)
+        assert steps._serve_fsdp(cfg, mesh, TPU_V5E) == \
+            jax_steps._serve_fsdp(jcfg, jmesh)
+        for name, shape in SHAPES.items():
+            jshape = JAX_SHAPES[name]
+            assert steps._small_dp_only(cfg, shape) == \
+                jax_steps._small_dp_only(jcfg, jshape)
+            assert steps.tp_for(cfg, mesh, shape) == \
+                jax_steps._tp_for(jcfg, jmesh, jshape)
+            assert dataclasses.asdict(steps._rules(mesh, shape, cfg)) == \
+                dataclasses.asdict(jax_steps._rules(jmesh, jshape, jcfg))
+
+
+def test_serve_fsdp_on_the_card():
+    """On the ``H100`` spec (80 GB) no arch needs FSDP to serve at TP 16;
+    on ``TPU_V5E`` (16 GiB) the three largest do."""
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.perfmodel.hw import H100, TPU_V5E
+    mesh = make_fake_mesh((16, 16), ("data", "model"))
+    assert not any(steps._serve_fsdp(get_config(a), mesh, H100)
+                   for a in list_archs())
+    assert {a for a in list_archs() if steps._serve_fsdp(
+        get_config(a), mesh, TPU_V5E)} == {
+        "jamba-1.5-large-398b", "qwen3-moe-235b-a22b", "mixtral-8x22b"}
+
+
+def test_long_decode_cell_on_one_device(models):
+    """``long_500k``'s cell at batch 1 without a mesh is the decode cell:
+    its step equals the plain decode from the same cache."""
+    model, _, cfg, _ = models
+    shape = ShapeConfig("long_500k", 64, 1, "long_decode")
+    cell = steps.build_cell(model, shape)
+    plain = steps.build_decode_cell(model, shape, impl="ref")
+    args = cell.materialize(4, "cpu")
+    assert torch.equal(plain.materialize(4, "cpu")["seq_lens"],
+                       args["seq_lens"])
+    np.testing.assert_allclose(cell(**args).numpy(),
+                               plain(**args).numpy(), **TOL)
+
+
+def test_mixtral_8x22b_one_card_cut():
+    """Mixtral-8x22B's cut keeps every width and 13 of 56 layers: 65.91 GB
+    in bf16 (14 would be 70.92 GB); sliding-window, so ``long_500k`` is
+    one of its cells."""
+    full = get_config("mixtral-8x22b")
+    cut = get_one_card_config("mixtral-8x22b")
+    assert cut == replace(full, num_layers=13)
+    assert 2 * full.param_count() / 1e9 == pytest.approx(281.26, abs=0.01)
+    assert 2 * cut.param_count() / 1e9 == pytest.approx(65.91, abs=0.01)
+    assert 2 * replace(full, num_layers=14).param_count() / 1e9 == \
+        pytest.approx(70.92, abs=0.01)
+    assert "long_500k" in [s.name for s in steps.cells_for_arch(cut)]

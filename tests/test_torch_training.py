@@ -742,3 +742,96 @@ def test_kernel_wrappers_refuse_grad(name):
         fn(*args)
     with torch.no_grad():
         fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# the train cell and its state's specs (launch/steps.py build_train_cell)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "mixtral-8x7b"])
+def test_train_state_specs_mirror_reference(arch):
+    """The moments take their parameters' logical axes, the counts none:
+    the reference's ``train_state_specs``, leaf by leaf (each layer's
+    specs less the stacked period dim)."""
+    from repro.training.train_lib import train_state_specs as jax_specs
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.training.train_lib import train_state_specs
+    cfg = get_reduced_config(arch)
+    mine = train_state_specs(tf_mod.param_specs(cfg))
+    _, jspecs = jax_tf.init_model_shapes(jax.random.PRNGKey(0),
+                                         jax_reduced_config(arch))
+    theirs = jax_specs(jspecs)
+    assert mine["count"] == theirs.opt.count == () and \
+        mine["step"] == theirs.step == ()
+    top = {"tok": ("embed", "tok"), "lm_head": ("lm_head", "w"),
+           "final_norm": ("final_norm", "w")}
+    for part, tree in (("mu", theirs.opt.mu), ("nu", theirs.opt.nu)):
+        assert mine[part] == mine["params"]
+        for name, spec in mine[part].items():
+            if name in top:
+                a, b = top[name]
+                assert tuple(spec) == tuple(tree[a][b]), name
+                continue
+            _, i, sub, *leaf = name.split(".")
+            node = tree["layers"][f"pos{int(i) % cfg.period}"][sub]
+            ref = node["w"] if not leaf else node[leaf[0]]
+            assert tuple(spec) == tuple(ref)[1:], name
+
+
+def test_train_cell_is_the_train_step():
+    """``build_train_cell`` without a mesh is ``make_train_step`` on the
+    cell's state: the same loss, grad norm and parameters, bit for bit."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf_mod
+    cfg = replace(get_reduced_config("granite-8b"), dtype="float32")
+    opt = optimizer.OptConfig(lr=1e-3)
+    shape = ShapeConfig("train", 16, 4, "train")
+    a = tf_mod.init_model(cfg, device="cpu", seed=2).requires_grad_()
+    b = tf_mod.init_model(cfg, device="cpu", seed=2).requires_grad_()
+    cell = steps.build_train_cell(a, shape, opt=opt, microbatches=2)
+    batch = cell.materialize(6, "cpu")
+    got = cell(**batch)
+    state, want = make_train_step(cfg, opt, microbatches=2)(
+        train_lib.train_state_from_model(b, opt), batch)
+    assert torch.equal(got["loss"], want["loss"])
+    assert torch.equal(got["grad_norm"], want["grad_norm"])
+    for (n, p), q in zip(cell.state.model.named_parameters(),
+                         state.model.parameters()):
+        assert torch.equal(p, q), n
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-large"])
+def test_embed_stub_train_step_matches_reference(arch, monkeypatch):
+    """An ``embed_stub`` model (embeddings in, its token table unread)
+    trains as the reference's: on the same embeddings, positions (M-RoPE
+    for Qwen2-VL) and labels, one step's loss and grad norm match, the
+    gradients entering ``adamw_update`` match (the table's zero on both
+    sides, as ``jax.grad`` gives it), and the table's update is the weight
+    decay alone on both.  (``adamw_update`` itself is held to the
+    reference above.)"""
+    from repro_torch.launch import steps
+    cfg, jcfg = _cfgs(arch)
+    jopt, opt = jax_opt.OptConfig(**OPT), optimizer.OptConfig(**OPT)
+    jstate = jax_train.init_train_state(jax.random.PRNGKey(0), jcfg, jopt)
+    state = train_state_from_reference(_ref_state_np(jstate), cfg)
+    monkeypatch.setattr(jax_train, "adamw_update",
+                        _recording(jax_train.adamw_update, lambda g: g))
+    monkeypatch.setattr(train_lib, "adamw_update", _recording(
+        train_lib.adamw_update, lambda g: {n: t.clone()
+                                           for n, t in g.items()}))
+    rng = np.random.default_rng(3)
+    batch = steps._prompt_args(cfg, rng, B, S, "cpu", torch.float32)
+    batch["labels"] = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32))
+    jstate, jm = jax.jit(jax_train.make_train_step(jcfg, jopt))(
+        jstate, {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+    state, m = make_train_step(cfg, opt)(state, batch)
+    for k in ("loss", "grad_norm"):
+        assert float(m[k]) == pytest.approx(float(jm[k]), rel=1e-4), k
+    want = unstack(jax.tree.map(_np, jm["g_in"]), cfg)
+    assert not np.any(want["tok"]) and not torch.any(m["g_in"]["tok"])
+    _close_leaves(m["g_in"], want, per_leaf=False)
+    tok = unstack(_ref_state_np(jstate)["params"], cfg)["tok"]
+    _close_leaves({"tok": state.params["tok"]}, {"tok": tok})
