@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only-mesh      # the build, then phase 13
+    python3 chip_smoke.py --only-hybrid    # the build, then phase 14
     python3 chip_smoke.py --gateway-runs N # phase 9 alone, N times
 
 Phases, each reported on its own line; any failure exits non-zero before
@@ -211,6 +212,27 @@ the result line:
                and batch (loss and grad norm within 1e-6).  The result
                line's kernel records carry ``at_g6``,
                ``at_long_500k_jamba`` and ``at_long_500k_mixtral_8x22b``.
+ 14. hybrid  — the hybrid-batching baseline, on granite-8b after phase 6
+               (before phase 9) and on the Jamba period after its phase 6
+               (before its float32 model): the paged, offset
+               ``flash_prefill`` against its plain version (float32 cases
+               to 3e-5; bf16 at the model's heads over chunks (0, 512),
+               (512, 512), (1250, 512), (1536, 226) of the first prompt
+               to 3e-2 and the row limit, which a wrong page and an offset
+               moved by a page must exceed), timed beside its bound, its
+               plain version and SDPA with a boolean mask; the 8 requests
+               through ``HybridEngine`` + ``KernelExecutor`` (chunk 512,
+               budget 2048), where only the paged form, ``paged_attention``
+               and (Jamba) ``ssm_scan`` may launch, every token count met
+               and pool and rows reclaimed, beside phase 6's RAPID run; the
+               first step with chunks and decodes again on the kernel and
+               plain paths from a copy of the cache it read (3e-2); the
+               first prompt prefilled in chunks against ``forward`` (3e-2,
+               and with Jamba's float32 weights 1e-3 with its state rows);
+               granite-8b on phase 8's lmsys trace in both modes.
+               ``--only-hybrid`` runs the build and this phase alone.
+Phase 9 also reports, read after each run (ROADMAP C8), the plans around
+every token stamped over 30 ms late net of plans.
 In phases 4, 5, 7, 8, 10, 12 and 13 the decode steps run as CUDA graphs,
 one per (batch size, table width), captured at a shape's first step and
 replayed after it (``models/decode_graph.py``).  For each model the graph check
@@ -1341,12 +1363,13 @@ ENGINE_KEYS = ("tokens", "span_s", "wall_s", "tokens_per_s", "ttft_mean_s",
                "ttft_p95_s", "itl_mean_s", "itl_p95_s")
 
 
-def engine_full(model, real, reqs=None, arrivals=None):
+def engine_full(model, real, reqs=None, arrivals=None, keep=None):
     """The serving run's requests (default: ``serving_requests``, all at
     t = 0; or arriving at ``arrivals``, rid -> s) through ``RapidEngine``
     + ``KernelExecutor`` with the pool the scheduler sizes from ``H100``;
     ``real`` is serve_real's (summary, tokens by rid) of the same
-    requests, or None.  Returns the launch counts of the run."""
+    requests, or None.  Returns the launch counts of the run, and puts
+    the run's summary and tokens into ``keep`` when it is given."""
     cfg = model.cfg
     reqs = reqs or serving_requests(cfg)
     gc.collect()
@@ -1409,6 +1432,8 @@ def engine_full(model, real, reqs=None, arrivals=None):
     require(s["preemptions"] == 0 and s["rejected"] == 0,
             f"engine {cfg.name}: {s['preemptions']} preemptions, "
             f"{s['rejected']} rejections")
+    if keep is not None:
+        keep.update(summary=s, tokens=result["tokens"])
     del result
     gc.collect()
     torch.cuda.empty_cache()
@@ -1969,21 +1994,26 @@ def kernels_phase(gen):
 
 
 def granite_phase(gen):
-    """Phases 4, 6 and 9 for granite-8b.  Returns the launch counts by
-    path."""
+    """Phases 4, 6, 14 and 9 for granite-8b.  Returns the launch counts
+    by path and phase 14's record of the paged, offset flash_prefill."""
     cfg = get_config("granite-8b")
     model = init_full(cfg)
     launches = {}
     launches["granite-8b"], summary, tokens = serve_full(model)
     say("profile", config=cfg.name, **profile_serving(model, cfg))
     graph_phase(model, serving_requests(cfg), gen)
-    launches["granite-8b-engine"] = engine_full(model, (summary, tokens))
+    rapid = {}
+    launches["granite-8b-engine"] = engine_full(model, (summary, tokens),
+                                                keep=rapid)
+    with timed("hybrid"):
+        paged, hybrid_launches = hybrid_phase(model, gen, rapid)
+    launches.update(hybrid_launches)
     with timed("gateway"):
         launches["granite-8b-gateway"] = gateway_phase(model)[0]
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, paged
 
 
 def jamba_phase(gen):
@@ -2004,13 +2034,20 @@ def jamba_phase(gen):
     launches["jamba-period"], summary, tokens = serve_full(model)
     say("profile", config=cfg.name, **profile_serving(model, cfg))
     graph_phase(model, serving_requests(cfg), gen)
-    launches["jamba-period-engine"] = engine_full(model, (summary, tokens))
+    rapid = {}
+    launches["jamba-period-engine"] = engine_full(model, (summary, tokens),
+                                                  keep=rapid)
+    with timed("hybrid jamba-period"):
+        jamba_attn["flash_prefill_paged"], hybrid_launches = hybrid_phase(
+            model, gen, rapid)
+    launches.update(hybrid_launches)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     # the same comparison with float32 weights (36 GB), where only the
     # order of float32 sums separates the two paths
     model = init_full(replace(cfg, dtype="float32"))
+    hybrid_f32(model)
     errs, _ = first_steps_kernel_vs_plain(model, serving_requests(cfg),
                                           SERVE["page"])
     fault = logits_fault(model, serving_requests(cfg)[0].prompt)
@@ -2025,6 +2062,380 @@ def jamba_phase(gen):
     gc.collect()
     torch.cuda.empty_cache()
     return jamba_attn, scan, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the hybrid-batching baseline (chunked prefill) on the card
+# ---------------------------------------------------------------------------
+
+HYBRID_CHUNK = 512              # the reference's --chunk default
+# a packed launch of chunks over the first prompt (1762 tokens), as four
+# requests at four points of their prefill: (offset, tokens) each
+HYBRID_CHUNKS = ((0, 512), (512, 512), (1250, 512), (1536, 226))
+# float32 cases (3e-5), the first launches of the kernel: (G, Hkv, D,
+# page, chunks); ragged q-blocks, chunks of one token, offsets off pages
+HYBRID_F32_CASES = [
+    (1, 2, 64, 16, ((0, 37), (100, 64), (7, 5))),
+    (4, 2, 128, 16, ((0, 130), (70, 1), (200, 65))),
+    (8, 1, 32, 8, ((33, 64), (0, 64), (5, 100))),
+    (2, 2, 16, 16, ((0, 20), (17, 90)))]
+
+
+def hybrid_case(gen, chunks, Hq, Hkv, D, page, dtype, spare=8):
+    """Packed queries of ``chunks`` ((offset, tokens), one request each),
+    random pages, each chunk's table of distinct random blocks covering its
+    offset + tokens keys (padded with block 0), and their ``Chunks``."""
+    need = [-(-(o + n) // page) for o, n in chunks]
+    N = sum(need) + spare
+    perm = torch.randperm(N, generator=gen, device=DEVICE)
+    width, at, rows = max(need), 0, []
+    for m in need:
+        rows.append(torch.cat([perm[at:at + m], perm.new_zeros(width - m)]))
+        at += m
+    layout = fp.Chunks([n for _, n in chunks], [o for o, _ in chunks])
+    return (randn(gen, layout.rows, Hq, D, dtype=dtype),
+            randn(gen, N, page, Hkv, D, dtype=dtype),
+            randn(gen, N, page, Hkv, D, dtype=dtype),
+            torch.stack(rows).int().contiguous(), layout)
+
+
+def paged_prefill_plain(q, k_pages, v_pages, tabs, layout):
+    return ref.paged_prefill(q, k_pages, v_pages, tabs, layout.starts,
+                             layout.lens, layout.offsets)
+
+
+def paged_prefill_faults(q, k_pages, v_pages, tabs, layout):
+    """The plain paged form under planted faults: chunk 2's page 1 read
+    from its page 2's block; chunk 1's offset moved down a page."""
+    tabs2 = tabs.clone()
+    tabs2[2, 1] = tabs[2, 2]
+    offs = list(layout.offsets)
+    offs[1] -= k_pages.shape[1]
+    return {"chunk_2_page_1_read_as_page_2": paged_prefill_plain(
+                q, k_pages, v_pages, tabs2, layout),
+            "chunk_1_offset_moved_a_page": paged_prefill_plain(
+                q, k_pages, v_pages, tabs, fp.Chunks(layout.lens, offs))}
+
+
+def paged_prefill_work(q, k_pages, layout):
+    """Bytes (q read and o written once, each chunk's offset + tokens K/V
+    rows read once, its table entries and the layout) and operations (each
+    query against the keys up to its position)."""
+    Hq, D = q.shape[1:]
+    page, Hkv = k_pages.shape[1:3]
+    keys = [o + n for o, n in zip(layout.offsets, layout.lens)]
+    nbytes = (2 * q.numel() + 2 * sum(keys) * Hkv * D) * q.element_size() \
+        + 4 * (sum(-(-k // page) for k in keys) + 3 * len(layout))
+    pairs = sum(n * o + n * (n + 1) // 2
+                for o, n in zip(layout.offsets, layout.lens))
+    return nbytes, 4 * pairs * Hq * D
+
+
+def paged_prefill_library(q, k_pages, v_pages, tabs, layout):
+    """The same function in ``scaled_dot_product_attention``, one call per
+    chunk over its own offset + tokens keys, gathered contiguous before
+    (not timed), with an explicit boolean mask causal at its offset: the
+    work the function needs, unpadded.  Returns the calls (timed together)
+    and their largest error against the plain version."""
+    page = k_pages.shape[1]
+    args = []
+    for c, (s0, n, o) in enumerate(zip(layout.starts, layout.lens,
+                                       layout.offsets)):
+        blocks = tabs[c, :-(-(o + n) // page)].long()
+        kk, vv = (pages[blocks].flatten(0, 1)[:o + n].transpose(0, 1)
+                  .contiguous()[None] for pages in (k_pages, v_pages))
+        mask = (torch.arange(o + n, device=DEVICE)[None] <=
+                o + torch.arange(n, device=DEVICE)[:, None])
+        args.append((q[s0:s0 + n].transpose(0, 1).contiguous()[None], kk,
+                     vv, mask))
+
+    def call():
+        return [F.scaled_dot_product_attention(qc, kc, vc, attn_mask=m,
+                                               enable_gqa=True)
+                for qc, kc, vc, m in args]
+    want = paged_prefill_plain(q, k_pages, v_pages, tabs, layout)
+    err = max(excess(out[0].transpose(0, 1), want[s0:s0 + n], 0)[1]
+              for out, s0, n in zip(call(), layout.starts, layout.lens))
+    return call, err
+
+
+def check_paged_prefill(gen, cfg):
+    """The paged, offset flash_prefill against its plain version: float32
+    at ``HYBRID_F32_CASES`` (3e-5), then bf16 at ``cfg``'s heads over
+    ``HYBRID_CHUNKS`` (3e-2 and the row limit, with two planted faults);
+    its times, bound and library time.  Returns its record."""
+    f32 = 0.0
+    for G, hkv, d, pg, chunks in HYBRID_F32_CASES:
+        args = hybrid_case(gen, chunks, G * hkv, hkv, d, pg, torch.float32)
+        over, err = excess(fp.flash_prefill_paged(*args),
+                           paged_prefill_plain(*args), TOL_F32)
+        require(over <= 0, f"flash_prefill_paged f32 max err {err} at "
+                f"G {G} D {d} chunks {chunks}")
+        f32 = max(f32, err)
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    args = hybrid_case(gen, HYBRID_CHUNKS, Hq, Hkv, D, SERVE["page"],
+                       torch.bfloat16)
+    library, library_err = paged_prefill_library(*args)
+    rec = kernel_record(
+        within_bf16("flash_prefill_paged", fp.flash_prefill_paged(*args),
+                    paged_prefill_plain(*args), paged_prefill_faults(*args)),
+        lambda: fp.flash_prefill_paged(*args),
+        lambda: paged_prefill_plain(*args), library,
+        paged_prefill_work(args[0], args[1], args[4]),
+        f"q{list(args[0].shape)} chunks (offset, tokens) "
+        f"{list(HYBRID_CHUNKS)} pages{list(args[1].shape)} bf16")
+    rec.update(f32_test_shapes_max_abs_err=f32,
+               library_max_abs_err=library_err,
+               library="scaled_dot_product_attention once per chunk over "
+               "its own keys, gathered contiguous (not timed), boolean "
+               "offset mask; the calls timed together",
+               ctas=sum(-(-n // fp.BLOCK_Q) for _, n in HYBRID_CHUNKS) * Hq)
+    return rec
+
+
+def hybrid_kernels(cfg):
+    """The kernels a hybrid serving run of ``cfg`` launches: the paged,
+    offset flash_prefill and paged_attention, and ssm_scan for Mamba."""
+    names = {"flash_prefill_paged", "paged_attention"}
+    if "mamba" in cfg.layer_pattern:
+        names.add("ssm_scan")
+    return names
+
+
+def engine_run(model, mode, reqs, arrivals=None):
+    """``serve_engine`` in ``mode`` with the pool the scheduler sizes from
+    ``H100``: (summary, kernel launches of the run, tokens by rid)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    result = serve_engine.serve_engine(
+        model, reqs, serve_engine.serve_config(mode=mode,
+                                               chunk=HYBRID_CHUNK),
+        arrivals=arrivals)
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    s = serve_engine.summarize(result)
+    tokens = result["tokens"]
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return s, launches, tokens
+
+
+def require_served(s, what):
+    require(s["tokens_met"], f"{what}: a request's token count was not met")
+    require(s["pool_reclaimed"] and s["state_rows_reclaimed"],
+            f"{what}: KV pool or state rows not reclaimed")
+    require(s["rejected"] == 0, f"{what}: {s['rejected']} rejections")
+
+
+@contextlib.contextmanager
+def first_mixed_step(store):
+    """Wrap ``hybrid_forward``: at the first step with both chunks and
+    decodes, keep its inputs and a compact copy of the cache it reads (the
+    pages of its tables, renumbered, and its state rows) from before it
+    ran, and its logits."""
+    real = tf.hybrid_forward
+
+    def wrapped(model, *args, **kw):
+        mixed = "args" not in store and len(args[2]) and args[5].shape[0]
+        if mixed:
+            store["args"] = compact_step(args[:-1], args[-1])
+        out = real(model, *args, **kw)
+        if mixed:
+            store["out"] = (out[0].clone(), out[1].clone())
+        return out
+
+    tf.hybrid_forward = wrapped
+    try:
+        yield
+    finally:
+        tf.hybrid_forward = real
+
+
+def compact_step(args, cache):
+    """``hybrid_forward``'s step inputs over a compact cache: the pages its
+    tables name and its state rows, copied and renumbered."""
+    c_in, c_pos, chunks, c_tab, c_rows, d_in, d_lens, d_tab, d_rows = args
+    pages = torch.unique(torch.cat([c_tab.flatten(),
+                                    d_tab.flatten()]).long())
+    rows = torch.unique(torch.cat([c_rows, d_rows]))
+    page_id = torch.full((int(pages.max()) + 1,), -1, dtype=torch.long,
+                         device=DEVICE)
+    page_id[pages] = torch.arange(len(pages), device=DEVICE)
+    row_id = torch.full((int(rows.max()) + 1,), -1, dtype=torch.long,
+                        device=DEVICE)
+    row_id[rows] = torch.arange(len(rows), device=DEVICE)
+    small = [{n: t[pages].clone() for n, t in c.items()} if "k" in c else
+             {n: t[rows].clone() for n, t in c.items()} for c in cache]
+    return ((c_in.clone(), c_pos.clone(), chunks,
+             page_id[c_tab.long()].int().contiguous(), row_id[c_rows],
+             d_in.clone(), d_lens.clone(),
+             page_id[d_tab.long()].int().contiguous(), row_id[d_rows]),
+            small)
+
+
+def mixed_step_kernel_vs_plain(model, store):
+    """The captured step on the kernel path and on the plain path, each
+    from its own copy of the compact cache: chunk and decode logits
+    against each other, and the kernel path against the logits the
+    serving run computed over the whole pool."""
+    args, small = store["args"]
+
+    def copy_of():
+        return [{n: t.clone() for n, t in c.items()} for c in small]
+
+    got = tf.hybrid_forward(model, *args, copy_of())
+    want = tf.hybrid_forward(model, *args, copy_of(), impl="ref")
+    return {"chunks": len(args[2]), "decodes": int(args[5].shape[0]),
+            "chunk_logits": rel_err(got[0], want[0]),
+            "decode_logits": rel_err(got[1], want[1]),
+            "compact_vs_served_max_abs_diff": max(
+                excess(got[0], store["out"][0], 0)[1],
+                excess(got[1], store["out"][1], 0)[1])}
+
+
+def chunked_first_token(model, prompt, chunk=HYBRID_CHUNK):
+    """``prompt`` prefilled in chunks through ``hybrid_forward`` (kernel
+    path) into a pool of its own pages (a random table) and one state row:
+    its last chunk's logits against ``forward``'s at the last position
+    (kernel path), and each recurrent layer's state row against the whole
+    prefill's final state (max|a-b|/max|b| of each)."""
+    cfg, page = model.cfg, SERVE["page"]
+    S = len(prompt)
+    n_pages = -(-S // page)
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    table = torch.randperm(n_pages, generator=gen,
+                           device=DEVICE).int()[None].contiguous()
+    cache = tf.init_cache(cfg, n_pages, page, 1, device=DEVICE,
+                          dtype=model.tok.dtype)
+    toks = torch.from_numpy(prompt).to(DEVICE)
+    row = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    none = torch.zeros((0, 1), dtype=torch.int32, device=DEVICE)
+    for o in range(0, S, chunk):
+        n = min(chunk, S - o)
+        logits, _, _ = tf.hybrid_forward(
+            model, toks[o:o + n], torch.arange(o, o + n, device=DEVICE),
+            fp.Chunks([n], [o]), table, row, none, none[:, 0], none,
+            row[:0], cache)
+    whole, aux = tf.forward(model, toks[None],
+                            torch.arange(S, device=DEVICE)[None],
+                            return_aux=True, last_only=True)
+    out = {"prompt": S, "chunks": -(-S // chunk),
+           "first_token_logits": rel_err(logits[0], whole[0]),
+           "same_first_token": bool(torch.equal(
+               tf.greedy_sample(logits, cfg.vocab_size),
+               tf.greedy_sample(whole, cfg.vocab_size)))}
+    states = [rel_err(c[k][0], a[k][0]) for c, a in zip(cache, aux)
+              if "k" not in c for k in ("conv", "ssm")]
+    if states:
+        out["state_rows"] = max(states)
+    del cache, aux
+    return out
+
+
+def hybrid_phase(model, gen, rapid):
+    """Phase 14 on ``model``: the paged, offset flash_prefill at its
+    shapes; hybrid serving of the smoke's 8 requests through
+    ``HybridEngine`` + ``KernelExecutor`` beside ``rapid`` (phase 6's
+    summary and tokens); the first mixed step and the first request's
+    first token held to the plain path and to a whole-prompt prefill; and,
+    for granite-8b, the reference's lmsys trace in both modes.  Returns
+    the kernel's record and the launch counts by path."""
+    cfg = model.cfg
+    rec = check_paged_prefill(gen, cfg)
+    say("kernels", phase="paged_prefill", config=cfg.name,
+        tolerance_bf16=TOL_BF16, tolerance_bf16_row=TOL_ROW,
+        tolerance_f32=TOL_F32, **rec)
+    reqs = serving_requests(cfg)
+    store = {}
+    with first_mixed_step(store):
+        s, launches, tokens = engine_run(model, "hybrid", reqs)
+    serve = serve_engine.serve_config(mode="hybrid", chunk=HYBRID_CHUNK)
+    say("hybrid", phase="run", config=cfg.name, chunk=serve.chunk_size,
+        token_budget=serve.token_budget, slots=serve.max_batch_slots,
+        kernel_launches=launches, **{k: v for k, v in s.items() if k not in (
+            "pool_bytes", "mem_free_after_pool", "fused_f_decode",
+            "fused_arm_f_decode", "arm_modes")})
+    same = sum(tokens.get(r.rid) == rapid["tokens"][r.rid] for r in reqs)
+    say("hybrid", phase="beside_rapid", config=cfg.name,
+        clock="engine clock (measured launches)",
+        hybrid={k: s[k] for k in ENGINE_KEYS},
+        rapid={k: rapid["summary"][k] for k in ENGINE_KEYS},
+        requests_tokens_equal_rapid=same, requests=len(reqs))
+    require_served(s, f"hybrid {cfg.name}")
+    require(s["launches"].get("hybrid", 0) >= 1,
+            f"hybrid {cfg.name}: no hybrid step: {s['launches']}")
+    launched = {k for k, n in launches.items() if n > 0}
+    require(launched == hybrid_kernels(cfg),
+            f"hybrid {cfg.name}: launched {sorted(launched)}, its path runs "
+            f"{sorted(hybrid_kernels(cfg))}: {launches}")
+    require("args" in store, f"hybrid {cfg.name}: no step held both a "
+            f"chunk and decodes")
+    mixed = mixed_step_kernel_vs_plain(model, store)
+    del store
+    first = chunked_first_token(model, reqs[0].prompt)
+    say("hybrid", phase="answers", config=cfg.name,
+        metric="max|a-b|/max|b|", limit=TOL_LOGITS,
+        mixed_step_kernel_vs_plain=mixed, chunked_vs_whole_prompt=first)
+    require(mixed["chunk_logits"] < TOL_LOGITS and
+            mixed["decode_logits"] < TOL_LOGITS,
+            f"hybrid {cfg.name}: kernel and plain logits of the first mixed "
+            f"step differ: {mixed}")
+    require(first["first_token_logits"] < TOL_LOGITS,
+            f"hybrid {cfg.name}: chunked and whole-prompt first-token logits "
+            f"differ: {first}")
+    by_path = {f"{cfg.name}-hybrid": launches}
+    if cfg.name == "granite-8b":
+        trace, arrivals = serve_engine.trace_requests(cfg, **LLAMA_TRACE)
+        modes = {}
+        for mode in ("rapid", "hybrid"):
+            modes[mode], by_path[f"{cfg.name}-{mode}-lmsys"], _ = engine_run(
+                model, mode, trace, arrivals)
+            require_served(modes[mode], f"{mode} {cfg.name} on lmsys")
+        say("hybrid", phase="lmsys", config=cfg.name, **LLAMA_TRACE,
+            requests=len(trace), clock="engine clock (measured launches)",
+            **{m: {k: v[k] for k in ENGINE_KEYS + ("launches",
+                                                   "preemptions")}
+               for m, v in modes.items()})
+    return rec, by_path
+
+
+def hybrid_f32(model):
+    """Phase 14 with the Jamba period's float32 weights: chunked against
+    whole-prompt first-token logits and state rows, within 1e-3."""
+    first = chunked_first_token(model, serving_requests(model.cfg)[0].prompt)
+    say("hybrid", phase="answers_f32", config=model.cfg.name,
+        metric="max|a-b|/max|b|", limit=TOL_LOGITS_F32,
+        chunked_vs_whole_prompt=first)
+    require(first["first_token_logits"] < TOL_LOGITS_F32 and
+            first["state_rows"] < TOL_LOGITS_F32,
+            f"hybrid float32: chunked and whole-prompt prefills differ: "
+            f"{first}")
+
+
+def only_hybrid(gen):
+    """``--only-hybrid``: phase 14 alone, after phase 6's RAPID engine run
+    of each model, on granite-8b and then the Jamba period (float32 too).
+    Returns the records of the paged form and the launch counts."""
+    recs, launches = {}, {}
+    for cfg in (get_config("granite-8b"), jamba_period()):
+        model = init_full(cfg)
+        serve_engine.warm_up(model)     # as phase 4 runs before phase 6
+        rapid = {}
+        launches[f"{cfg.name}-engine"] = engine_full(model, None, keep=rapid)
+        recs[cfg.name], got = hybrid_phase(model, gen, rapid)
+        launches.update(got)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    model = init_full(replace(jamba_period(), dtype="float32"))
+    hybrid_f32(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3137,6 +3548,7 @@ def gateway_phase(model):
             f"gateway: of {len(lanes)} lane completions one was due "
             f"{max(due_after, default=0) * 1e3:.3f} ms after its launch's "
             f"end")
+    late_tokens(ex.log, eng.stream.events(), offset[0])
     late = serve_engine.stamps_late(net)
     require(late is None, f"gateway: {late}")
     # the tokens beside serve_real's greedy tokens for the same prompts,
@@ -3464,6 +3876,45 @@ def timed(phase):
     say("time", phase=phase, seconds=time.perf_counter() - t)
 
 
+def late_tokens(log, events, offset):
+    """ROADMAP C8, read after the run: for every token stamped more than
+    ``STAMP_MAX_S`` after its lane's end net of plans, the launches of the
+    plans from the one before its lane's to the one after the last plan
+    that started before its stamp (kind, plan, graph, start on the clock,
+    host end on the clock, wall seconds, batch); and the tokens over
+    ``STAMP_P99_S`` counted by the kind and graph state of their lane's
+    launch and of the next plan's."""
+    stamps = serve_engine.token_stamps(log, events, offset)
+    by_plan = collections.defaultdict(list)
+    for e in log:
+        by_plan[e["plan"]].append(e)
+
+    def fields(e):
+        return {"kind": e["kind"], "plan": e["plan"], "graph": e["graph"],
+                "t_start": e["t_start"], "host_end": e["host_end"] + offset,
+                "wall_s": e["wall_s"], "decode_bs": e["decode_bs"],
+                "rids": len(e["rids"])}
+
+    def kind(p):
+        es = by_plan.get(p)
+        return f"{es[-1]['kind']}/{es[-1]['graph']}" if es else "none"
+
+    over, counts = [], collections.Counter()
+    for st in stamps:
+        if st["net"] > serve_engine.STAMP_P99_S:
+            counts[f"{kind(st['plan'])} then {kind(st['plan'] + 1)}"] += 1
+        if st["net"] <= serve_engine.STAMP_MAX_S:
+            continue
+        last = max([p for p, es in by_plan.items()
+                    if min(e["t_start"] for e in es) <= st["t"]],
+                   default=st["plan"])
+        over.append({**st, "launches": [
+            fields(e) for p in range(st["plan"] - 1, last + 2)
+            for e in by_plan.get(p, [])]})
+    say("gateway", phase="late_tokens", limit_ms=serve_engine.STAMP_MAX_S
+        * 1e3, over_limit=over, over_p99_limit_by_plans=dict(counts))
+
+
 def gateway_runs(runs):
     """``--gateway-runs``: phase 9 alone, ``runs`` times in a row on one
     granite-8b (after phase 4's serving run, as in the whole smoke).  A
@@ -3497,6 +3948,9 @@ def main(argv=None):
                     "float32 plain path (ROADMAP C9)")
     ap.add_argument("--only-mesh", action="store_true",
                     help="run only phase 13 (after the build)")
+    ap.add_argument("--only-hybrid", action="store_true",
+                    help="run only phase 14 (after the build, and phase "
+                    "6's RAPID run it is set beside)")
     ap.add_argument("--only-cells", nargs="?", const=str(CELL_SEED),
                     metavar="SEEDS",
                     help="run only phase 12 (after the build); with "
@@ -3537,6 +3991,14 @@ def main(argv=None):
             say("depths", phase="table", card=card, limit=TOL_LOGITS,
                 records=recs)
             return 0
+        if args.only_hybrid:
+            with timed("hybrid"):
+                recs, launches = only_hybrid(gen)
+            say("hybrid", phase="only", launches=launches,
+                kernels={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+                         for k, v in recs.items()})
+            return 0
         if args.only_mesh:
             with timed("mesh"):
                 recs, launches = mesh_phase(gen, card)
@@ -3553,7 +4015,7 @@ def main(argv=None):
         with timed("kernels"):
             worst_f32, worst_bf16, recs = kernels_phase(gen)
         with timed("granite-8b"):
-            launches = granite_phase(gen)
+            launches, recs["flash_prefill_paged"] = granite_phase(gen)
         with timed("jamba-period"):
             jamba_attn, recs["ssm_scan"], jamba_launches = jamba_phase(gen)
         launches.update(jamba_launches)
@@ -3590,6 +4052,9 @@ def main(argv=None):
     # too) are under launches_by_path
     sources = {"flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill.py:113"),
+               "flash_prefill_paged": (
+                   "src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill.py:113"),
                "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:109"),
                "unified_pd": ("src/repro_torch/csrc/unified_pd.cu",
@@ -3611,7 +4076,8 @@ def main(argv=None):
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
-                        "f32_test_shapes_max_abs_err": worst_f32[name]})
+                        "f32_test_shapes_max_abs_err": worst_f32.get(
+                            name, r.get("f32_test_shapes_max_abs_err"))})
         if name in worst_bf16:
             kernels[-1]["bf16_test_shapes"] = worst_bf16[name]
         for k in ("splits", "bound_share", "lanes", "stages", "random_A",

@@ -822,14 +822,18 @@ class RapidEngine(Engine):
 
 
 class HybridEngine(Engine):
-    """Sarathi/vLLM-v1 chunked-prefill baseline."""
+    """Sarathi/vLLM-v1 chunked-prefill baseline.  ``executor`` (the
+    port's addition) runs its plans, e.g. a ``KernelExecutor`` on the
+    device; default: the perfmodel's."""
 
     def __init__(self, cfg, serve: ServeConfig, hw: HardwareSpec = TPU_V5E,
                  loop: Optional[EventLoop] = None,
-                 preempt_policy: PreemptionPolicy = DEFAULT_PREEMPTION):
+                 preempt_policy: PreemptionPolicy = DEFAULT_PREEMPTION,
+                 executor: Optional[Executor] = None):
         super().__init__(cfg, serve, hw,
                          scheduler=HybridScheduler(cfg, serve, hw),
-                         loop=loop, preempt_policy=preempt_policy)
+                         executor=executor, loop=loop,
+                         preempt_policy=preempt_policy)
 
 
 class DisaggEngine(Engine):

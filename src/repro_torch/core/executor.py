@@ -10,8 +10,9 @@ modelled (DESIGN.md §6).
 The split exists so a *real-kernel* executor can drop in behind the same
 interface: ``KernelExecutor`` below runs each plan's launches through the
 port's model and CUDA kernels at once (``unified_pd`` for colocated
-plans, ``flash_prefill`` and ``paged_attention`` for launches alone) and
-reports measured durations.  The other classes are copies of
+plans, ``flash_prefill`` and ``paged_attention`` for launches alone, the
+paged, offset ``flash_prefill`` and ``paged_attention`` for a hybrid
+step) and reports measured durations.  The other classes are copies of
 ``repro/core/executor.py``.
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.core.events import FinishedEvent, PhaseEvent
 from repro_torch.core.scheduler import SchedView, StepPlan
+from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import ring_slots, ring_table
 from repro_torch.models.decode_graph import DecodeGraphs, table_width
@@ -307,10 +309,25 @@ class KernelExecutor(Executor):
     fewer (an xLSTM-125M row is 19 MB).  Running out of rows raises, and
     a live row is never overwritten.
 
-    What it does not run raises ``NotImplementedError``: hybrid plans,
-    split-pool engines and their KV transfers (disagg), what-if
-    ``price_batch`` pricing (it would run the model), and a prefill after
-    a cached prefix (a session's, or a gateway checkpoint's restore).
+    Hybrid plans (``HybridEngine``, the chunked-prefill baseline).  A
+    step with prompt chunks runs ONE ``hybrid_forward``: the chunks at
+    their offsets (``prefill_tokens_done``; the paged, offset prefill over
+    the pool) and the running decodes together, and its outcome is the
+    step's ``hybrid`` lane.  A request's blocks are allocated whole at
+    admission, so its block table is known from its first chunk; its
+    state row is taken at its first chunk and carries a Mamba layer's
+    state from chunk to chunk.  Its last chunk also carries the tokens a
+    resumed request had generated (the scheduler chunks its prompt alone,
+    ``prefill_tokens_needed``; its allocation holds its context), and the
+    greedy token of that chunk's last position is its next one.  A step
+    with decodes and no chunk goes through ``DecodeGraphs`` as a decode
+    alone.  A sliding window and xLSTM layers are not chunked (ROADMAP
+    A5), and a hybrid plan of such a model raises.
+
+    What it does not run raises ``NotImplementedError``: split-pool
+    engines and their KV transfers (disagg), what-if ``price_batch``
+    pricing (it would run the model), and a prefill or chunk after a
+    cached prefix (a session's, or a gateway checkpoint's restore).
 
     ``bind(engine)`` allocates the pool at the engine's KV block count
     and subscribes to its events; ``log`` holds one record per launch,
@@ -357,8 +374,9 @@ class KernelExecutor(Executor):
         if not engine.scheduler.colocated:
             raise NotImplementedError(
                 "KernelExecutor runs colocated engines only: split-pool "
-                "(disagg) execution is the ROADMAP item 'hybrid and "
-                "disagg real execution'")
+                "(disagg) execution is ROADMAP A11")
+        if engine.scheduler.mode == "hybrid":
+            self._check_chunked()
         self.num_blocks = engine.kv.allocator.num_blocks
         if self.state_rows is None:
             self.state_rows = self.num_blocks
@@ -392,24 +410,35 @@ class KernelExecutor(Executor):
     def price_batch(self, plans, views):
         raise NotImplementedError(
             "KernelExecutor measures by running the model: what-if "
-            "pricing of many plans is the perfmodel's (ROADMAP item "
-            "'hybrid and disagg real execution')")
+            "pricing of many plans is the perfmodel's (ROADMAP A11)")
 
     def transfer_seconds(self, r, serve) -> float:
         raise NotImplementedError(
             "KV transfers (disagg) are not run on the device yet (ROADMAP "
-            "item 'hybrid and disagg real execution')")
+            "A11)")
+
+    def _check_chunked(self) -> None:
+        """Raise for a model whose prompts the hybrid steps cannot chunk."""
+        cfg = self.cfg
+        if cfg.sliding_window:
+            raise NotImplementedError(
+                f"{cfg.name}: hybrid steps chunk prompts, and a chunk "
+                f"written into a sliding-window ring overwrites keys its own "
+                f"earlier queries read (ROADMAP A5)")
+        xlstm = sorted({cfg.mixer_at(i) for i in range(cfg.num_layers)} &
+                       {"mlstm", "slstm"})
+        if xlstm:
+            raise NotImplementedError(
+                f"{cfg.name}: hybrid steps chunk prompts, and chunked "
+                f"{', '.join(xlstm)} state is not ported (ROADMAP A5)")
 
     # -- execution --------------------------------------------------------------
     @torch.no_grad()
     def execute(self, plan: StepPlan, view: SchedView) -> StepOutputs:
-        if plan.hybrid is not None:
-            raise NotImplementedError(
-                "KernelExecutor runs RAPID plans: hybrid (chunked-prefill) "
-                "steps are the ROADMAP item 'hybrid and disagg real "
-                "execution'")
         if self.cache is None:
             raise RuntimeError("KernelExecutor.bind(engine) first")
+        if plan.hybrid is not None:
+            return self._execute_hybrid(plan, view)
         prefill = list(plan.prefill.batch) if plan.prefill else []
         for r in prefill:
             if r.cached_prefix_len > 0:
@@ -439,6 +468,28 @@ class KernelExecutor(Executor):
             p_out = LaunchOutcome(wait + spent, priced.prefill.cost)
         self.busy_until = view.now + wait + spent
         return StepOutputs(prefill=p_out, decode=d_out)
+
+    def _execute_hybrid(self, plan: StepPlan, view: SchedView
+                        ) -> StepOutputs:
+        chunks = list(plan.hybrid.chunks)
+        for r, _ in chunks:
+            if r.cached_prefix_len > 0:
+                raise NotImplementedError(
+                    f"request {r.rid}: a chunk after a cached prefix (a "
+                    f"session's, or a restored KV checkpoint's) is ROADMAP "
+                    f"A5")
+        decode = list(view.running)
+        priced = self._priced.execute(plan, view)
+        self._plans += 1
+        wait = max(0.0, self.busy_until - view.now)
+        self._t = view.now + wait
+        if chunks:
+            spent = self._hybrid(chunks, decode, view.kv)
+        else:
+            spent = self._decode(decode, None, view.kv)
+        self.busy_until = view.now + wait + spent
+        return StepOutputs(hybrid=LaunchOutcome(wait + spent,
+                                                priced.hybrid.cost))
 
     def _launch(self, kind: str, run, **info) -> "tuple[list, float]":
         """Time ``run`` — it enqueues one launch and returns its sampled
@@ -563,6 +614,67 @@ class KernelExecutor(Executor):
         tables = [b + [0] * (width - len(b)) for b in tables]
         return (self._ints(toks), self._ints(lens), self._ints(tables),
                 self._ints(rows, torch.int64))
+
+    def _chunk_inputs(self, chunks, kv):
+        """The packed inputs of a hybrid step's chunks: tokens, absolute
+        positions, the ``Chunks`` layout, block tables (padded with 0)
+        and state rows; and per chunk (rid, offset, rows, whether it ends
+        the request's prefill, the generated tokens it carries)."""
+        toks, offs, lens, tables, rows, info = [], [], [], [], [], []
+        for r, take in chunks:
+            context = self._context(r, kv)      # its allocation holds it
+            off = r.prefill_tokens_done
+            last = off + take >= r.prefill_tokens_needed
+            seg = context[off:] if last else context[off:off + take]
+            toks.append(seg)
+            offs.append(off)
+            lens.append(len(seg))
+            tables.append(kv.blocks_of(r.rid))
+            rows.append(self._take_row(r.rid) if off == 0
+                        else self._row_of[r.rid])
+            info.append((r.rid, off, len(seg), last,
+                         r.tokens_generated if last else 0))
+        pages = [len(b) for b in tables]
+        tables = [b + [0] * (max(pages) - len(b)) for b in tables]
+        pos = np.concatenate([np.arange(o, o + n) for o, n in
+                              zip(offs, lens)])
+        return (torch.from_numpy(np.concatenate(toks).astype(np.int32))
+                .to(self.device), torch.from_numpy(pos).to(self.device),
+                _fp.Chunks(lens, offs, pages), self._ints(tables),
+                self._ints(rows, torch.int64), info)
+
+    def _hybrid(self, chunks, decode, kv) -> float:
+        vocab = self.cfg.vocab_size
+        info = []
+
+        def run():
+            self._flush_spares(kv)
+            if decode:
+                d_in = self._decode_inputs(decode, kv)
+            else:
+                none = torch.zeros((0, 1), dtype=torch.int32,
+                                   device=self.device)
+                d_in = (none, none[:, 0], none, self._ints([], torch.int64))
+            *c_in, got = self._chunk_inputs(chunks, kv)
+            info.extend(got)
+            c_logits, d_logits, _ = tf.hybrid_forward(
+                self.model, *c_in, *d_in, self.cache)
+            return torch.cat([tf.greedy_sample(c_logits, vocab),
+                              tf.greedy_sample(d_logits, vocab)])[:, 0]
+
+        out, wall = self._launch(
+            "hybrid", run, rids=[r.rid for r, _ in chunks] +
+            [r.rid for r in decode], decode_bs=len(decode), f_decode=None,
+            arm_f_decode=None)
+        self.log[-1].update(prefill_tokens=sum(i[2] for i in info),
+                            resumed=sum(i[4] for i in info),
+                            chunks=[i[:3] for i in info])
+        for (rid, _, _, last, _), t in zip(info, out):
+            if last:
+                self.tokens[rid].append(t)
+        for r, t in zip(decode, out[len(chunks):]):
+            self.tokens[r.rid].append(t)
+        return wall
 
     def _prefill(self, r, kv) -> float:
         vocab = self.cfg.vocab_size

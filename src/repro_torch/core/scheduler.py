@@ -398,7 +398,18 @@ class RapidScheduler(Scheduler):
 
 class HybridScheduler(Scheduler):
     """One lockstep batch per iteration: decodes first, then prefill
-    chunks up to the token budget — the §3.1 ITL coupling RAPID removes."""
+    chunks up to the token budget — the §3.1 ITL coupling RAPID removes.
+
+    The port's repair of the reference's stall: a request admitted in this
+    plan is chunked with its cached-prefix claim capped at ``prompt_len -
+    1``, the bound the engine clamps the claim to at admission (the last
+    prompt position is always computed: its logits give the first token,
+    as vLLM recomputes the last cached token).  The reference plans with
+    the raw claim, so a lone request whose claim covers its prompt gets no
+    chunk, no step is launched, and nothing wakes the engine again
+    (prompt 16, claim 16: PREFILLING forever).  Where the claim is below
+    the prompt, as on every trace the engine's golden records hold, the
+    plans are the reference's."""
 
     mode = "hybrid"
     lanes = ("step",)
@@ -428,10 +439,11 @@ class HybridScheduler(Scheduler):
         admitted: List[Request] = []
         claimed = set()
         for r in view.queues["waiting"]:
-            if not self._fits_pool(r.prompt_len, view.kv, ps):
+            n = self.kv_tokens(r)
+            if not self._fits_pool(n, view.kv, ps):
                 plan.rejects.append((r, "waiting"))
                 continue
-            need = self._pages_needed(r, view.kv, ps, claimed)
+            need = self._pages_needed(r, view.kv, ps, claimed, n)
             if need > free or slots >= serve.max_batch_slots:
                 break
             free -= need
@@ -448,8 +460,10 @@ class HybridScheduler(Scheduler):
         for r in itertools.chain(view.queues["chunking"], admitted):
             if budget <= 0:
                 break
+            # the engine's clamp at admission, for a request admitted now
+            prefix = min(r.cached_prefix_len, r.prompt_len - 1)
             take = min(serve.chunk_size, budget,
-                       r.prefill_tokens_needed - r.prefill_tokens_done)
+                       r.prompt_len - prefix - r.prefill_tokens_done)
             if take <= 0:
                 continue
             chunks.append((r, take))

@@ -6,6 +6,10 @@
 //                   causal (and window) range of keys, in k-blocks of BK
 //                   keys, both products on the tensor cores (wgmma);
 //   flash_tile    - float32: the same tile on CUDA cores (float32 FMAs);
+//                   both read their rows through a Rows view: a dense
+//                   (B, H, S, D) sequence (DenseRows), or one chunk of a
+//                   prompt at its offset, its keys gathered through its
+//                   block-table row from the paged pool (PagedRows);
 //   paged_tile    - the G query heads of one (sequence, kv-head) against
 //                   one split of SPLIT keys of the sequence's paged KV,
 //                   in chunks of BK keys gathered through its block-table
@@ -113,6 +117,69 @@ struct PrefillArgs {
   float sm_scale;
 };
 
+// Chunks of prompts packed along the rows of q and o, each chunk's
+// queries at its offset over its request's paged KV: chunk c is rows
+// meta[c] .. meta[c] + meta[C + c] - 1 of q and o, at absolute positions
+// meta[2C + c] + i, and sees keys 0 .. meta[2C + c] + meta[C + c] - 1 (its
+// earlier chunks' and its own, written before the launch), read through
+// row c of `tables`.  No sliding window (a ring would overwrite keys the
+// chunk's own earlier queries still read).
+struct PagedPrefillArgs {
+  const void* q;        // (T, Hq, D): rows and heads strided, D dense
+  const void* k_pages;  // (N, page, Hkv, D) dense
+  const void* v_pages;
+  void* o;              // (T, Hq, D)
+  const int* tables;    // (C, max_pages)
+  const int* meta;      // (3, C): starts, lens, offsets
+  int64_t sq_t, sq_h, so_t, so_h;
+  int C, Hq, Hkv, page, max_pages;
+  float sm_scale;
+};
+
+// Where a prefill tile reads and writes the rows of one (sequence,
+// q-head): query and output row r (r < n_q) at absolute position q_pos +
+// r, and the key and value rows of positions 0 .. n_k - 1.
+template <typename T>
+struct KVRow {
+  const T* k;
+  const T* v;
+};
+template <typename T>
+struct DenseRows {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
+  int64_t qs, ks, vs, os;
+  int n_q, q_pos, n_k;
+  __device__ __forceinline__ const T* q_row(int r) const { return q + r * qs; }
+  __device__ __forceinline__ T* o_row(int r) const { return o + r * os; }
+  __device__ __forceinline__ KVRow<T> kv_row(int p) const {
+    return {k + p * ks, v + p * vs};
+  }
+};
+// The same for a chunk over the paged pool: position p of its request is
+// slot p % page of page table[p / page]; k and v point at the kv head's
+// columns of page 0.
+template <typename T>
+struct PagedRows {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
+  int64_t qs, os;
+  const int* table;
+  int page;
+  int64_t page_stride, slot_stride;  // page * Hkv * D, Hkv * D
+  int n_q, q_pos, n_k;
+  __device__ __forceinline__ const T* q_row(int r) const { return q + r * qs; }
+  __device__ __forceinline__ T* o_row(int r) const { return o + r * os; }
+  __device__ __forceinline__ KVRow<T> kv_row(int p) const {
+    const int64_t at = table[p / page] * page_stride + (p % page) * slot_stride;
+    return {k + at, v + at};
+  }
+};
+
 struct DecodeArgs {
   const void* q;        // (B, Hq, D) dense
   const void* k_pages;  // (N, page, Hkv, D) dense
@@ -216,16 +283,16 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// Causal flash attention for query rows [qi*BQ, qi*BQ+BQ) of (b, h), on
+// Causal flash attention for query rows [qi*BQ, qi*BQ+BQ) of a Rows view, on
 // CUDA cores: the float32 tile (TF32 tensor cores could not hold float32's
 // 3e-5).  Tiles are staged in shared memory as float32.  Thread (ty, tx) =
 // (t/16, t%16) owns rows ty+16i and, within a k-block, keys tx+16j and
 // output dims tx+16j.  Row max/sum reduce across the 16 threads of a
 // half-warp.  The k-block loop stops at the causal bound and
-// starts at the window bound; keys past S are zero-filled and masked, rows
-// past S are computed but never stored, so no padded copy exists.
-template <typename T, int D>
-__device__ void flash_tile(const PrefillArgs& a, int b, int h, int qi,
+// starts at the window bound; keys past n_k are zero-filled and masked,
+// rows past n_q are computed but never stored, so no padded copy exists.
+template <typename T, int D, typename Rows>
+__device__ void flash_tile(const Rows& a, int window, float sm_scale, int qi,
                            float* smem) {
   static_assert(D % 16 == 0 && D <= 128, "D in {16, 32, 64, 128}");
   constexpr int DP = D + 1;  // padded row stride: conflict-free columns
@@ -237,15 +304,11 @@ __device__ void flash_tile(const PrefillArgs& a, int b, int h, int qi,
   float* Ps = Vs + BK * D;
 
   const int t = tile_thread<D>(), tx = t % 16, ty = t / 16;
-  const int kvh = h / (a.Hq / a.Hkv);
   const int q0 = qi * BQ;
-  const T* q = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* k = static_cast<const T*>(a.k) + b * a.sk.b + kvh * a.sk.h;
-  const T* v = static_cast<const T*>(a.v) + b * a.sv.b + kvh * a.sv.h;
-  T* o = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
+  const int qa0 = a.q_pos + q0;  // absolute position of the tile's row 0
 
-  const auto q_row = [&](int r) { return q + (q0 + r) * a.sq.s; };
-  stage_rows<T, BQ, D, false>(Qs, DP, nullptr, 0, min(BQ, a.S - q0), q_row,
+  const auto q_row = [&](int r) { return a.q_row(q0 + r); };
+  stage_rows<T, BQ, D, false>(Qs, DP, nullptr, 0, min(BQ, a.n_q - q0), q_row,
                               q_row);
 
   float m[RPT], l[RPT], acc[RPT][DPT];
@@ -257,16 +320,16 @@ __device__ void flash_tile(const PrefillArgs& a, int b, int h, int qi,
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
   }
 
-  const int k_end = min(a.S, q0 + BQ);  // causal bound (exclusive)
+  const int k_end = min(a.n_k, qa0 + BQ);  // causal bound (exclusive)
   int kb = 0;
-  if (a.window > 0 && q0 - a.window + 1 > 0) kb = (q0 - a.window + 1) / BK;
+  if (window > 0 && qa0 - window + 1 > 0) kb = (qa0 - window + 1) / BK;
   for (; kb * BK < k_end; ++kb) {
     const int k0 = kb * BK;
     __syncthreads();  // the previous step is done with Ks/Vs/Ps
     stage_rows<T, BK, D, true>(
-        Ks, DP, Vs, D, min(BK, a.S - k0),
-        [&](int r) { return k + (k0 + r) * a.sk.s; },
-        [&](int r) { return v + (k0 + r) * a.sv.s; });
+        Ks, DP, Vs, D, min(BK, a.n_k - k0),
+        [&](int r) { return a.kv_row(k0 + r).k; },
+        [&](int r) { return a.kv_row(k0 + r).v; });
     __syncthreads();
 
     float sc[RPT][KPT];
@@ -289,14 +352,14 @@ __device__ void flash_tile(const PrefillArgs& a, int b, int h, int qi,
 
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+      const int qpos = qa0 + ty + 16 * i;
       float rmax = NEG_INF;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos <= qpos && kpos < a.S &&
-                        (a.window <= 0 || kpos > qpos - a.window);
-        sc[i][j] = ok ? sc[i][j] * a.sm_scale : NEG_INF;
+        const bool ok = kpos <= qpos && kpos < a.n_k &&
+                        (window <= 0 || kpos > qpos - window);
+        sc[i][j] = ok ? sc[i][j] * sm_scale : NEG_INF;
         rmax = fmaxf(rmax, sc[i][j]);
       }
       rmax = half_warp_max(rmax);
@@ -334,11 +397,12 @@ __device__ void flash_tile(const PrefillArgs& a, int b, int h, int qi,
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int s = q0 + ty + 16 * i;
-    if (s < a.S) {
+    if (s < a.n_q) {
       const float li = fmaxf(l[i], 1e-30f);
+      T* o = a.o_row(s);
 #pragma unroll
       for (int j = 0; j < DPT; ++j)
-        o[s * a.so.s + tx + 16 * j] = from_f32<T>(acc[i][j] / li);
+        o[tx + 16 * j] = from_f32<T>(acc[i][j] / li);
     }
   }
 }
@@ -394,7 +458,8 @@ __device__ __forceinline__ bool key_visible(int kpos, int qpos, int S,
   return kpos <= qpos && kpos < S && (window <= 0 || kpos > qpos - window);
 }
 
-// Causal flash attention for query rows [qi*BQ, qi*BQ+BQ) of (b, h), bf16.
+// Causal flash attention for query rows [qi*BQ, qi*BQ+BQ) of a Rows view,
+// bf16.
 //
 // Warpgroup 0 (threads 0-127) is the producer: it copies K and V k-blocks
 // with 16-byte cp.async into a ring of STAGES swizzled stages and signals
@@ -407,8 +472,8 @@ __device__ __forceinline__ bool key_visible(int kpos, int qpos, int S,
 // layout is already the register A operand of O += P V, four wgmma
 // m64nDk16 with V read MN-major from shared memory.  Then it releases the
 // stage through its `empty` barrier.  Only the diagonal block and the
-// window and ragged edges are masked.  Keys past S are zero-filled and
-// masked, rows past S are computed but never stored.
+// window and ragged edges are masked.  Keys past n_k are zero-filled and
+// masked, rows past n_q are computed but never stored.
 // The tensor-core tile's shared memory: Q at the first 1024-byte boundary,
 // then STAGES K stages, STAGES V stages, and the barriers full[STAGES],
 // empty[STAGES].
@@ -421,9 +486,9 @@ __device__ __forceinline__ uint32_t flash_tc_bars(void* smem_raw) {
   return flash_tc_q<D>(smem_raw) + (BQ + 2 * STAGES * BK) * D * 2;
 }
 
-template <int D>
-__device__ void flash_tile_tc(const PrefillArgs& a, int b, int h, int qi,
-                              void* smem_raw) {
+template <int D, typename Rows>
+__device__ void flash_tile_tc(const Rows& a, int window, float sm_scale,
+                              int qi, void* smem_raw) {
   static_assert(D % 16 == 0 && D >= 16 && D <= 128, "D in {16, 32, 64, 128}");
   using bf16 = __nv_bfloat16;
   constexpr int TILE = BK * D * 2, CH = D / 8;  // bytes; 16-byte chunks/row
@@ -434,14 +499,11 @@ __device__ void flash_tile_tc(const PrefillArgs& a, int b, int h, int qi,
   const auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
 
   const int t = tile_thread<D>();
-  const int kvh = h / (a.Hq / a.Hkv);
   const int q0 = qi * BQ;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h;
-  const int k_end = min(a.S, q0 + BQ);  // causal bound (exclusive)
+  const int qa0 = a.q_pos + q0;  // absolute position of the tile's row 0
+  const int k_end = min(a.n_k, qa0 + BQ);  // causal bound (exclusive)
   int kb0 = 0;
-  if (a.window > 0 && q0 - a.window + 1 > 0) kb0 = (q0 - a.window + 1) / BK;
+  if (window > 0 && qa0 - window + 1 > 0) kb0 = (qa0 - window + 1) / BK;
   const int nkb = (k_end + BK - 1) / BK - kb0;
 
   if (t == 0) {
@@ -454,8 +516,8 @@ __device__ void flash_tile_tc(const PrefillArgs& a, int b, int h, int qi,
   for (int i = t; i < BQ * CH; i += THREADS) {
     const int r = i / CH, c = i % CH;
     hopper::cp_async16(sQ + tile_offset<D, BQ>(r, c),
-                       q + min(q0 + r, a.S - 1) * a.sq.s + c * 8,
-                       q0 + r < a.S);
+                       a.q_row(min(q0 + r, a.n_q - 1)) + c * 8,
+                       q0 + r < a.n_q);
   }
   hopper::cp_async_commit();
   hopper::cp_async_wait<0>();
@@ -469,11 +531,11 @@ __device__ void flash_tile_tc(const PrefillArgs& a, int b, int h, int qi,
       const int k0 = (kb0 + j) * BK;
       for (int i = t; i < BK * CH; i += 128) {
         const int r = i / CH, c = i % CH;
-        const int row = min(k0 + r, a.S - 1);
-        const bool ok = k0 + r < a.S;
+        const KVRow<bf16> kv = a.kv_row(min(k0 + r, a.n_k - 1));
+        const bool ok = k0 + r < a.n_k;
         const uint32_t off = s * TILE + tile_offset<D, BK>(r, c);
-        hopper::cp_async16(sK + off, k + row * a.sk.s + c * 8, ok);
-        hopper::cp_async16(sV + off, v + row * a.sv.s + c * 8, ok);
+        hopper::cp_async16(sK + off, kv.k + c * 8, ok);
+        hopper::cp_async16(sV + off, kv.v + c * 8, ok);
       }
       hopper::cp_async_mbar_arrive(full(s));
     }
@@ -484,7 +546,8 @@ __device__ void flash_tile_tc(const PrefillArgs& a, int b, int h, int qi,
   // consumer warpgroup
   const int ct = t - 128, warp = ct / 32, lane = ct % 32, tq = lane % 4;
   const int qp0 = q0 + 16 * warp + lane / 4, qp1 = qp0 + 8;
-  const float scale = a.sm_scale * 1.44269504088896341f;  // exp -> exp2
+  const int ap0 = a.q_pos + qp0, ap1 = ap0 + 8;  // their absolute positions
+  const float scale = sm_scale * 1.44269504088896341f;  // exp -> exp2
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -510,8 +573,8 @@ __device__ void flash_tile_tc(const PrefillArgs& a, int b, int h, int qi,
     hopper::fence_regs<BK / 2>(sc);
 
     // online softmax on the fragments, in the exp2 domain
-    const bool edge = k0 + BK - 1 > q0 ||
-                      (a.window > 0 && k0 <= q0 + BQ - 1 - a.window);
+    const bool edge = k0 + BK - 1 > qa0 ||
+                      (window > 0 && k0 <= qa0 + BQ - 1 - window);
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int jj = 0; jj < BK / 8; ++jj) {
@@ -520,8 +583,8 @@ __device__ void flash_tile_tc(const PrefillArgs& a, int b, int h, int qi,
         const int kpos = k0 + 8 * jj + 2 * tq + e;
         float x0 = sc[4 * jj + e] * scale, x1 = sc[4 * jj + 2 + e] * scale;
         if (edge) {
-          if (!key_visible(kpos, qp0, a.S, a.window)) x0 = NEG_INF;
-          if (!key_visible(kpos, qp1, a.S, a.window)) x1 = NEG_INF;
+          if (!key_visible(kpos, ap0, a.n_k, window)) x0 = NEG_INF;
+          if (!key_visible(kpos, ap1, a.n_k, window)) x1 = NEG_INF;
         }
         sc[4 * jj + e] = x0;
         sc[4 * jj + 2 + e] = x1;
@@ -567,15 +630,14 @@ __device__ void flash_tile_tc(const PrefillArgs& a, int b, int h, int qi,
 
   const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
   const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
-  bf16* out = static_cast<bf16*>(a.o) + b * a.so.b + h * a.so.h;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int d = 8 * i + 2 * tq;
-    if (qp0 < a.S)
-      *reinterpret_cast<uint32_t*>(out + qp0 * a.so.s + d) =
+    if (qp0 < a.n_q)
+      *reinterpret_cast<uint32_t*>(a.o_row(qp0) + d) =
           hopper::pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
-    if (qp1 < a.S)
-      *reinterpret_cast<uint32_t*>(out + qp1 * a.so.s + d) =
+    if (qp1 < a.n_q)
+      *reinterpret_cast<uint32_t*>(a.o_row(qp1) + d) =
           hopper::pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
   }
 }
@@ -880,15 +942,49 @@ __device__ void paged_tile(const DecodeArgs& a, int b, int kvh, int split,
   }
 }
 
-// The prefill tile of dtype T: tensor cores for bf16, CUDA cores for
-// float32; and its dynamic shared memory in bytes.
+// The prefill tile of dtype T over a Rows view: tensor cores for bf16,
+// CUDA cores for float32.
+template <typename T, int D, typename Rows>
+__device__ __forceinline__ void rows_tile(const Rows& rows, int window,
+                                          float sm_scale, int qi, void* smem) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    flash_tile_tc<D>(rows, window, sm_scale, qi, smem);
+  else
+    flash_tile<T, D>(rows, window, sm_scale, qi, static_cast<float*>(smem));
+}
+// The prefill tile of q-block qi of (b, h) of a dense prefill; and its
+// dynamic shared memory in bytes (prefill_smem_bytes).
 template <typename T, int D>
 __device__ __forceinline__ void prefill_tile(const PrefillArgs& a, int b,
                                              int h, int qi, void* smem) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    flash_tile_tc<D>(a, b, h, qi, smem);
-  else
-    flash_tile<T, D>(a, b, h, qi, static_cast<float*>(smem));
+  const int kvh = h / (a.Hq / a.Hkv);
+  const DenseRows<T> rows{
+      static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h,
+      static_cast<const T*>(a.k) + b * a.sk.b + kvh * a.sk.h,
+      static_cast<const T*>(a.v) + b * a.sv.b + kvh * a.sv.h,
+      static_cast<T*>(a.o) + b * a.so.b + h * a.so.h,
+      a.sq.s, a.sk.s, a.sv.s, a.so.s, a.S, 0, a.S};
+  rows_tile<T, D>(rows, a.window, a.sm_scale, qi, smem);
+}
+// The prefill tile of q-block qi of chunk c, q-head h, over the paged pool;
+// a q-block past the chunk's rows has nothing to do (the whole CTA returns).
+template <typename T, int D>
+__device__ __forceinline__ void paged_prefill_tile(const PagedPrefillArgs& a,
+                                                   int c, int h, int qi,
+                                                   void* smem) {
+  const int start = a.meta[c], n = a.meta[a.C + c],
+            off = a.meta[2 * a.C + c];
+  if (qi * BQ >= n) return;
+  const int kvh = h / (a.Hq / a.Hkv);
+  const int64_t slot = static_cast<int64_t>(a.Hkv) * D;
+  const PagedRows<T> rows{
+      static_cast<const T*>(a.q) + start * a.sq_t + h * a.sq_h,
+      static_cast<const T*>(a.k_pages) + kvh * D,
+      static_cast<const T*>(a.v_pages) + kvh * D,
+      static_cast<T*>(a.o) + start * a.so_t + h * a.so_h,
+      a.sq_t, a.so_t, a.tables + static_cast<int64_t>(c) * a.max_pages,
+      a.page, a.page * slot, slot, n, off, off + n};
+  rows_tile<T, D>(rows, 0, a.sm_scale, qi, smem);
 }
 // Ends a prefill tile in a CTA that runs more tiles: the tensor-core tile's
 // barriers are invalidated, so that the next tile may re-initialise them

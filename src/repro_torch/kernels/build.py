@@ -131,11 +131,12 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def entry(name: str, argtypes):
-    """The C launch entry ``<name>_launch`` of ``csrc/<name>.cu``, with
-    its argument types declared (pointers and the stream as c_void_p)."""
+def entry(name: str, argtypes, symbol: str = ""):
+    """The C launch entry ``<name>_launch`` of ``csrc/<name>.cu`` (or
+    ``symbol``, another entry of the same source), with its argument types
+    declared (pointers and the stream as c_void_p)."""
     lib = library(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, symbol or f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

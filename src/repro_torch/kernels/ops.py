@@ -24,6 +24,12 @@ def flash_prefill(q, k, v, *, window: Optional[int] = None):
     return o.transpose(1, 2)
 
 
+def flash_prefill_paged(q, k_pages, v_pages, block_tables, chunks):
+    """q (T,Hq,D): prompt chunks packed, each at its offset over its
+    request's paged KV (``flash_prefill.Chunks``) -> (T,Hq,D)."""
+    return _fp.flash_prefill_paged(q, k_pages, v_pages, block_tables, chunks)
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     """q (B,Hq,D) over paged cache -> (B,Hq,D)."""
     return _pa.paged_attention(q, k_pages, v_pages, block_tables, seq_lens)
@@ -74,6 +80,7 @@ def ssm_scan(xs, dt, A, Bm, Cm, *, h0=None):
 
 
 LAUNCH_COUNTED = {"flash_prefill": _fp.flash_prefill,
+                  "flash_prefill_paged": _fp.flash_prefill_paged,
                   "paged_attention": _pa.paged_attention,
                   "unified_pd": _updk.unified_pd,
                   "ssm_scan": _ssm.ssm_scan}

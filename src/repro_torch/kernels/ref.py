@@ -20,11 +20,15 @@ NEG_INF = -1e30
 CHUNK_Q = 512
 
 
-def causal_attention(q, k, v, *, window: Optional[int] = None):
+def causal_attention(q, k, v, *, window: Optional[int] = None,
+                     q_offset: int = 0):
     """q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D) -> (B,Hq,Sq,D).  GQA by repeat.
 
-    Query position i attends to keys <= i, and within `window` when set.
-    The queries go through in chunks of ``CHUNK_Q`` rows.
+    Query i sits at absolute position q_offset + i and attends to keys at
+    positions <= its own, and within `window` when set: ``q_offset`` > 0
+    is a chunk of a prompt whose first q_offset positions are already
+    cached (k and v hold them first).  The queries go through in chunks
+    of ``CHUNK_Q`` rows.
     """
     B, Hq, Sq, D = q.shape
     G = Hq // k.shape[1]
@@ -35,7 +39,8 @@ def causal_attention(q, k, v, *, window: Optional[int] = None):
     for i0 in range(0, Sq, CHUNK_Q):
         qc = q[:, :, i0:i0 + CHUNK_Q].float()
         scores = torch.einsum("bhqd,bhkd->bhqk", qc, k) / (D ** 0.5)
-        qpos = torch.arange(i0, i0 + qc.shape[2], device=q.device)
+        qpos = torch.arange(q_offset + i0, q_offset + i0 + qc.shape[2],
+                            device=q.device)
         mask = kpos[None, :] <= qpos[:, None]
         if window is not None:
             mask &= kpos[None, :] > qpos[:, None] - window
@@ -67,6 +72,34 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, vv)
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_prefill(q, k_pages, v_pages, block_tables, starts, lens, offsets,
+                  *, window: Optional[int] = None):
+    """Prefill attention of chunks packed along q's first dim, each chunk
+    over its request's paged KV at its offset.
+
+    q (T,Hq,D): chunk c's queries are rows starts[c] .. starts[c] +
+    lens[c] - 1, at absolute positions offsets[c] .. offsets[c] + lens[c]
+    - 1.  k/v_pages (N, page, Hkv, D) hold each chunk's keys at positions
+    0 .. offsets[c] + lens[c] - 1 (the chunk's own written first), read
+    through row c of block_tables (C, max_pages) int32.  starts, lens and
+    offsets are host sequences of ints.  Gathers each chunk's pages, then
+    ``causal_attention`` at the chunk's offset.  Returns (T,Hq,D)."""
+    page = k_pages.shape[1]
+    out = torch.zeros_like(q)
+    for c, (s, n, off) in enumerate(zip(starts, lens, offsets)):
+        if n == 0:
+            continue
+        keys = off + n
+        tab = block_tables[c, :-(-keys // page)].long()
+        kk = k_pages[tab].flatten(0, 1)[:keys]          # (keys, Hkv, D)
+        vv = v_pages[tab].flatten(0, 1)[:keys]
+        out[s:s + n] = causal_attention(
+            q[None, s:s + n].transpose(1, 2), kk[None].transpose(1, 2),
+            vv[None].transpose(1, 2), window=window,
+            q_offset=off)[0].transpose(0, 1)
+    return out
 
 
 def unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,

@@ -1,15 +1,25 @@
-"""RAPID-Serve's own engine serving a real model: one ``RapidEngine``
-replica whose plans a ``KernelExecutor`` runs through the port's model
-and CUDA kernels, with the ARM's ``f_decode`` in every fused step.
+"""RAPID-Serve's own engine serving a real model: one replica whose plans
+a ``KernelExecutor`` runs through the port's model and CUDA kernels.
 
 The port's counterpart of ``repro/launch/serve.py``, restricted to one
-RAPID replica on a real model.  It runs a list of requests known in
-advance (below), or, with ``--serve http``, the reference's online
-gateway (``serving/gateway.py``, ``serving/http.py``): admission,
-routing, NDJSON token streams with backpressure, heartbeats, failover
-and cancellation, over one RAPID worker on the card.  It leaves out the
-reference launcher's priced fleets (``--mix``, ``--replicas``, ``--mode
-all``), its multi-class workloads, and the hybrid and disagg modes.
+replica on a real model, in one of two of the reference's modes
+(``--mode``):
+  * ``rapid`` (default) — ``RapidEngine``, the paper's: whole prompts
+    prefilled beside the decode batch, with the ARM's ``f_decode`` in every
+    fused step (``unified_pd``);
+  * ``hybrid`` — ``HybridEngine``, the hybrid-batching baseline (Sarathi,
+    vLLM's chunked prefill): one batch a step, the running decodes plus
+    prompt chunks of at most ``--chunk`` tokens (default 512, as the
+    reference's) up to the token budget (2048), the chunks attending
+    through the paged, offset ``flash_prefill``.
+``--mode disagg`` and ``--mode all`` raise ``NotImplementedError``: split
+pools with a KV transfer are not run on one card yet (ROADMAP A11).  It
+runs a list of requests known in advance (below), or, with ``--serve
+http``, the reference's online gateway (``serving/gateway.py``,
+``serving/http.py``): admission, routing, NDJSON token streams with
+backpressure, heartbeats, failover and cancellation, over one worker of
+the mode on the card.  It leaves out the reference launcher's priced
+fleets (``--mix``, ``--replicas``) and its multi-class workloads.
 
 The online server.  The body of ``POST /v1/generate`` carries a prompt
 length, not tokens: a request's prompt tokens are drawn with numpy from
@@ -62,7 +72,7 @@ import torch
 
 from repro_torch.config import (SLOConfig, ServeConfig, get_one_card_config,
                                 get_reduced_config, replace)
-from repro_torch.core.engines import RapidEngine, drive
+from repro_torch.core.engines import HybridEngine, RapidEngine, drive
 from repro_torch.core.executor import KernelExecutor
 from repro_torch.core.request import Request
 from repro_torch.launch import serve_real
@@ -81,12 +91,33 @@ from repro_torch.serving.traces import TRACES, generate_trace
 CPU_HBM_BYTES = 32 << 20
 
 
-def serve_config(slo: Optional[SLOConfig] = None) -> ServeConfig:
-    """One RAPID replica on one card with ``serve_real``'s decode slots
-    and page size; every other field at its default."""
-    return ServeConfig(mode="rapid", chips=1,
+# the modes a replica runs on the card, by engine
+ENGINES = {"rapid": RapidEngine, "hybrid": HybridEngine}
+MODES = ("rapid", "hybrid", "disagg", "all")    # the reference's --mode
+
+
+def check_mode(mode: str) -> None:
+    """Raise for a mode the port does not run on the card."""
+    if mode in ENGINES:
+        return
+    if mode in MODES:
+        raise NotImplementedError(
+            f"mode {mode!r}: disaggregated serving (split prefill and decode "
+            f"pools with a KV transfer) is not run on one card yet (ROADMAP "
+            f"A11); the port serves {sorted(ENGINES)}")
+    raise ValueError(f"no such mode {mode!r}; known: {list(MODES)}")
+
+
+def serve_config(slo: Optional[SLOConfig] = None, mode: str = "rapid",
+                 chunk: int = 512) -> ServeConfig:
+    """One replica of ``mode`` on one card with ``serve_real``'s decode
+    slots and page size and a hybrid step's ``chunk``; every other field
+    at its default."""
+    check_mode(mode)
+    return ServeConfig(mode=mode, chips=1,
                        max_batch_slots=serve_real.SLOTS,
-                       page_size=serve_real.PAGE, slo=slo or SLOConfig())
+                       page_size=serve_real.PAGE, chunk_size=chunk,
+                       slo=slo or SLOConfig())
 
 
 def trace_requests(cfg, trace: str, qps: float, duration: float,
@@ -107,20 +138,19 @@ def serve_engine(model, requests: List[serve_real.Request],
                  serve: ServeConfig, *, hw: HardwareSpec = H100,
                  arrivals: Optional[Dict[int, float]] = None) -> dict:
     """Serve ``requests`` (``serve_real.Request``s, each arriving at its
-    ``arrivals`` time in seconds, or all at t = 0) through
-    ``RapidEngine(cfg, serve, hw, executor=KernelExecutor(...))`` driven
-    by ``drive``.  Returns the engine's ``RequestRecord``s, the
-    executor's launch log, each request's tokens, the engine's requests,
-    the decode graphs' counts, and what ended reclaimed."""
-    if serve.mode != "rapid":
-        raise NotImplementedError(f"mode {serve.mode!r}: the port serves "
-                                  "the rapid engine only")
+    ``arrivals`` time in seconds, or all at t = 0) through the engine of
+    ``serve.mode`` (``RapidEngine`` or ``HybridEngine``) with
+    ``executor=KernelExecutor(...)``, driven by ``drive``.  Returns the
+    engine's ``RequestRecord``s, the executor's launch log, each request's
+    tokens, the engine's requests, the decode graphs' counts, and what
+    ended reclaimed."""
+    check_mode(serve.mode)
     serve_real.check_tokens(model.cfg)
     dev = model.tok.device
     ex = KernelExecutor(model, prompts={r.rid: r.prompt for r in requests},
                         serve=serve, device=dev, hw=hw,
                         state_rows=len(requests))
-    engine = RapidEngine(model.cfg, serve, hw, executor=ex)
+    engine = ENGINES[serve.mode](model.cfg, serve, hw, executor=ex)
     ex.bind(engine)
     mem = torch.cuda.mem_get_info(dev) if dev.type == "cuda" else None
     arrivals = arrivals or {}
@@ -138,7 +168,7 @@ def serve_engine(model, requests: List[serve_real.Request],
             "max_new": {r.rid: r.max_new for r in requests},
             "wakes": engine.loop.stats.dispatched,
             "arm_modes": dict(collections.Counter(
-                a.mode for a in engine.arm.history)),
+                a.mode for a in engine.arm.history)) if engine.arm else {},
             "pool_blocks": ex.num_blocks,
             "spare_pages": serve.max_batch_slots,
             "pool_bytes": ex.pool_bytes,
@@ -188,18 +218,16 @@ class SeededPrompts(Mapping):
 
 def kernel_engines(model, prompts: Mapping, tokens: Dict[int, List[int]]):
     """The gateway's ``engine_factory`` for workers on the model's device:
-    a ``RapidEngine`` whose plans a ``KernelExecutor`` runs, bound to it
-    (its KV pool allocated whole).  Every worker's executor reads the
-    prompts from ``prompts`` and keeps the generated tokens in
-    ``tokens``, so a request that moves between workers keeps its own."""
+    a ``RapidEngine`` or ``HybridEngine`` (the worker's mode) whose plans a
+    ``KernelExecutor`` runs, bound to it (its KV pool allocated whole).
+    Every worker's executor reads the prompts from ``prompts`` and keeps
+    the generated tokens in ``tokens``, so a request that moves between
+    workers keeps its own."""
     def build(mode, cfg, serve, hw, loop):
-        if mode != "rapid":
-            raise NotImplementedError(
-                f"mode {mode!r}: the port's workers run the rapid engine "
-                f"only (ROADMAP item 'hybrid and disagg real execution')")
+        check_mode(mode)
         ex = KernelExecutor(model, prompts=prompts, serve=serve,
                             device=model.tok.device, hw=hw, tokens=tokens)
-        engine = RapidEngine(cfg, serve, hw, loop=loop, executor=ex)
+        engine = ENGINES[mode](cfg, serve, hw, loop=loop, executor=ex)
         ex.bind(engine)
         return engine
     return build
@@ -229,16 +257,18 @@ def check_online(cfg, checkpoint_interval: int = 0) -> None:
 def make_gateway(model, serve: ServeConfig, prompts: Mapping, *, clock,
                  hw: HardwareSpec = H100, workers: int = 1,
                  **gateway_kw) -> Gateway:
-    """A ``Gateway`` on ``clock`` over ``workers`` RAPID workers, each a
-    ``RapidEngine`` + ``KernelExecutor`` on the model's device, all
-    reading their prompts from ``prompts`` and sharing one store of
-    generated tokens; ``gateway_kw`` are the gateway's own (``router``,
-    ``policy``, ``admission``, ``retry``, ...).
+    """A ``Gateway`` on ``clock`` over ``workers`` workers of
+    ``serve.mode``, each a ``RapidEngine`` or ``HybridEngine`` +
+    ``KernelExecutor`` on the model's device, all reading their prompts
+    from ``prompts`` and sharing one store of generated tokens;
+    ``gateway_kw`` are the gateway's own (``router``, ``policy``,
+    ``admission``, ``retry``, ...).
 
-    What it does not run is refused (``check_online``)."""
+    What it does not run is refused (``check_online``, ``check_mode``)."""
+    check_mode(serve.mode)
     policy = gateway_kw.get("policy")
     check_online(model.cfg, policy.checkpoint_interval if policy else 0)
-    return Gateway(model.cfg, serve, modes=["rapid"] * workers, hw=hw,
+    return Gateway(model.cfg, serve, modes=[serve.mode] * workers, hw=hw,
                    clock=clock, engine_factory=kernel_engines(
                        model, prompts, tokens={}),
                    **gateway_kw)
@@ -257,12 +287,13 @@ def warm_up(model) -> None:
 
 
 def serve_http(model, args, hw: HardwareSpec) -> None:
-    """``--serve http``: the online gateway over one RAPID worker on the
-    model's device, until interrupted."""
+    """``--serve http``: the online gateway over one worker of
+    ``--mode`` on the model's device, until interrupted."""
     prompts = SeededPrompts(model.cfg.vocab_size, args.seed)
     warm_up(model)
     gw = make_gateway(
-        model, serve_config(SLOConfig(itl_ms=args.slo_itl_ms)), prompts,
+        model, serve_config(SLOConfig(itl_ms=args.slo_itl_ms), args.mode,
+                            args.chunk), prompts,
         clock=RealTimeClock(), hw=hw, router=args.router,
         admission=AdmissionPolicy(
             kv_headroom=args.kv_headroom,
@@ -288,24 +319,20 @@ STAMP_P99_S = 5e-3
 STAMP_MAX_S = 30e-3
 
 
-def token_stamp_lags(log, events, offset: float
-                     ) -> "tuple[List[float], List[float]]":
-    """For each ``TokenEvent`` in ``events``: how long after its lane's
-    end it was stamped, on the gateway's clock (``offset``: its time less
-    the host's ``perf_counter``), from a ``KernelExecutor``'s ``log``.  A
-    lane ends when its launch's tokens reached the host (``host_end``; a
-    plan's prefill lane with its last launch).  Returns the lags raw, and
-    net of the time the host thread spent in between on plans (from the
-    engine's view of each to its last launch's end: it was busy
-    scheduling and launching, its own plan's later launches included, not
-    waiting)."""
+def token_stamps(log, events, offset: float) -> List[dict]:
+    """For each ``TokenEvent`` in ``events`` after a launch of a
+    ``KernelExecutor``'s ``log``: its rid and stamp ``t``, the ``plan``
+    of its lane's launch, the lane's end (``lane_end``) on the gateway's
+    clock (``offset``: its time less the host's ``perf_counter``), and
+    how long after that end it was stamped, ``raw`` and ``net`` of the
+    plans run in between (``token_stamp_lags``)."""
     plans = collections.defaultdict(list)
     for e in log:
         plans[e["plan"]].append(e)
     span = {p: (min(e["t_start"] for e in es),
                 max(e["host_end"] for e in es) + offset)
             for p, es in plans.items()}
-    raw, net = [], []
+    out = []
     for ev in events:
         if type(ev).__name__ != "TokenEvent":
             continue
@@ -320,9 +347,25 @@ def token_stamp_lags(log, events, offset: float
             e["host_end"] + offset
         between = sum(max(0.0, min(b, ev.t) - max(a, lane_end))
                       for a, b in span.values())
-        raw.append(ev.t - lane_end)
-        net.append(ev.t - lane_end - between)
-    return raw, net
+        out.append({"rid": ev.rid, "t": ev.t, "plan": e["plan"],
+                    "lane_end": lane_end, "raw": ev.t - lane_end,
+                    "net": ev.t - lane_end - between})
+    return out
+
+
+def token_stamp_lags(log, events, offset: float
+                     ) -> "tuple[List[float], List[float]]":
+    """For each ``TokenEvent`` in ``events``: how long after its lane's
+    end it was stamped, on the gateway's clock (``offset``: its time less
+    the host's ``perf_counter``), from a ``KernelExecutor``'s ``log``.  A
+    lane ends when its launch's tokens reached the host (``host_end``; a
+    plan's prefill lane with its last launch).  Returns the lags raw, and
+    net of the time the host thread spent in between on plans (from the
+    engine's view of each to its last launch's end: it was busy
+    scheduling and launching, its own plan's later launches included, not
+    waiting)."""
+    stamps = token_stamps(log, events, offset)
+    return [s["raw"] for s in stamps], [s["net"] for s in stamps]
 
 
 def stamps_late(net: List[float]) -> Optional[str]:
@@ -405,6 +448,13 @@ def summarize(result: dict) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--mode", default="rapid", choices=MODES,
+                    help="rapid (the paper's engine) or hybrid (chunked "
+                    "prefill, the hybrid-batching baseline); disagg and all "
+                    "are not run on one card yet (ROADMAP A11)")
+    ap.add_argument("--chunk", type=int, default=512,
+                    help="hybrid: the most prompt tokens of one request in "
+                    "a step")
     ap.add_argument("--full", action="store_true",
                     help="the published widths: the published config, or "
                     "its one-card cut where one card cannot hold it "
@@ -456,6 +506,7 @@ def main(argv=None):
         get_reduced_config(args.arch)
     if args.dtype:
         cfg = replace(cfg, dtype=args.dtype)
+    check_mode(args.mode)
     try:
         serve_real.check_tokens(cfg)
         if args.serve == "http":
@@ -482,8 +533,10 @@ def main(argv=None):
                                         (128, 2048), (16, 64))
     else:
         reqs = serve_real.make_requests(cfg, args.requests, args.seed)
-    summary = summarize(serve_engine(model, reqs, serve_config(), hw=hw,
-                                     arrivals=arrivals))
+    summary = summarize(serve_engine(model, reqs,
+                                     serve_config(mode=args.mode,
+                                                  chunk=args.chunk),
+                                     hw=hw, arrivals=arrivals))
     print(json.dumps(summary))
     if not (summary["pool_reclaimed"] and summary["state_rows_reclaimed"]
             and summary["tokens_met"]):

@@ -24,6 +24,13 @@ KV, ``long_500k``) computes each chip's pages' part with its
 log-sum-exp and combines the parts (``paged_partial``); a kernel takes
 that only where the split is one chip (it returns no log-sum-exp).
 
+A hybrid (chunked-prefill) step's prompt chunks attend through
+``chunk_attend`` (``transformer.hybrid_forward`` computes their q, k and v
+with the step's decode rows, RoPE at their absolute positions): each
+chunk's K/V is written into the pool first, and its queries then read
+their request's keys through its block table at the chunk's offset
+(``kernels.flash_prefill.flash_prefill_paged``).
+
 The decode cache is the paged pool of ``kvcache/manager.py``:
 (num_blocks, page, Hkv, D) per layer, addressed through int32 block
 tables.  The reference's slot-dense cache is its special case with
@@ -218,6 +225,31 @@ def write_kv(k_pages, v_pages, k, v, rows):
     N, page, Hkv, D = k_pages.shape
     k_pages.view(N * page, Hkv, D)[rows] = k.to(k_pages.dtype)
     v_pages.view(N * page, Hkv, D)[rows] = v.to(v_pages.dtype)
+
+
+def chunk_rows(block_tables, chunk_ids, positions, page: int):
+    """Flat pool rows of packed chunk tokens: token i of chunk
+    ``chunk_ids[i]`` at absolute ``positions[i]``, through that chunk's
+    row of ``block_tables`` (C, max_pages) -> (T,) int64."""
+    pos = positions.long()
+    blocks = block_tables.long()[chunk_ids.long(), pos // page]
+    return blocks * page + pos % page
+
+
+def chunk_attend(q, k, v, k_pages, v_pages, block_tables, rows, chunks, *,
+                 impl: str):
+    """Write the packed chunks' k/v (T, Hkv, D) at pool ``rows`` (T,),
+    then their queries q (T, Hq, D) attend, each chunk at its offset over
+    its request's keys through its block-table row (``chunks``: a
+    ``kernels.flash_prefill.Chunks``): the paged, offset prefill on the
+    kernel path, ``ref.paged_prefill`` on the plain one.  -> (T, Hq, D)."""
+    check_impl(impl)
+    write_kv(k_pages, v_pages, k, v, rows)
+    if impl == "kernel":
+        return ops.flash_prefill_paged(q, k_pages, v_pages, block_tables,
+                                       chunks)
+    return ref.paged_prefill(q, k_pages, v_pages, block_tables,
+                             chunks.starts, chunks.lens, chunks.offsets)
 
 
 def decode_attention(p: Attention, cfg, x, positions, k_pages, v_pages,

@@ -21,7 +21,11 @@ Entry points:
                            decode batch through every layer together, with
                            ONE ``unified_pd`` launch per layer for both
                            attentions and ONE ``ssm_scan`` launch per
-                           Mamba layer for the prefill.
+                           Mamba layer for the prefill;
+  * ``hybrid_forward``   — the hybrid-batching baseline's step: prompt
+                           chunks at their offsets and decode tokens
+                           through every layer together, the chunks'
+                           attention through the paged, offset prefill.
 
 An MoE layer takes the reference's capacity policy of the same step:
 ``forward`` with ``return_aux`` (the serving prefill) the inference
@@ -583,6 +587,103 @@ def fused_pd_forward(model: Transformer, p_inputs, p_positions, d_inputs,
     last = torch.cat([x[:n_p].view(Bp, Sp, -1)[:, -1], x[n_p:]])
     logits = lm_logits(model, last)[:, None]
     return logits[:Bp], aux, logits[Bp:], cache
+
+
+@torch.no_grad()
+def hybrid_forward(model: Transformer, c_inputs, c_positions, chunks,
+                   c_tables, c_rows, d_inputs, d_lens, d_tables, d_rows,
+                   cache, *, impl: str = "kernel"):
+    """One hybrid (chunked-prefill) step, Sarathi's batch: prompt chunks
+    of several requests and the decode tokens of the running ones through
+    every layer together.
+
+    c_inputs (T,) the chunks' tokens packed, c_positions (T,) their
+    absolute positions; ``chunks`` (``kernels.flash_prefill.Chunks``) each
+    chunk's rows and offset; c_tables (C, max_pages) int32 each chunk's
+    block table; c_rows (C,) int64 each chunk's recurrent state row.
+    d_inputs (Bd,1), d_lens (Bd,) int32 tokens already cached, d_tables
+    (Bd, w) int32, d_rows (Bd,) int64, as ``decode_forward`` takes them.
+
+    The projections, FFNs and LM head run once over all T + Bd rows.  In
+    an attention layer every chunk's K/V is written into the pool and its
+    queries attend at its offset through its table (one paged, offset
+    prefill launch for all chunks); the decodes write at ``d_lens`` and
+    attend through ``paged_attention``.  In a Mamba layer each chunk runs
+    the mixer (one ``ssm_scan``) from its row's state, or from zero for a
+    chunk at offset 0, and writes its final state back to the row; the
+    decodes take one step on theirs.  An MoE layer routes the chunk rows
+    as one prefill batch (the inference policy) and the decodes dropless.
+    A sliding window and xLSTM layers raise (ROADMAP A5).
+
+    Returns (c_logits (C,1,Vp) at each chunk's last token, d_logits
+    (Bd,1,Vp), cache) — the cache updated in place."""
+    attn_mod.check_impl(impl)
+    cfg = model.cfg
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: chunked prefill over a sliding-window ring: a "
+            f"chunk written into the ring overwrites keys its own earlier "
+            f"queries read (ROADMAP A5)")
+    if any(cfg.mixer_at(i) in XLSTM for i in range(cfg.num_layers)):
+        raise NotImplementedError(
+            f"{cfg.name}: chunked prefill of xLSTM layers needs their "
+            f"chunked sLSTM and mLSTM state (ROADMAP A5)")
+    T, Bd = c_inputs.shape[0], d_inputs.shape[0]
+    dev = c_inputs.device
+    x = torch.cat([embed_inputs(model, c_inputs[None])[0],
+                   embed_inputs(model, d_inputs).flatten(0, 1)])
+    positions = torch.cat([c_positions, d_lens.to(c_positions.dtype)])
+    page = _page(cache)
+    if page is not None:
+        ids = torch.repeat_interleave(
+            torch.arange(len(chunks), device=dev),
+            torch.tensor(chunks.lens, device=dev), output_size=T)
+        c_pool = attn_mod.chunk_rows(c_tables, ids, c_positions, page)
+        d_pool = attn_mod.pool_rows(d_tables, d_lens[:, None], page)
+    attend = ops.paged_attention if impl == "kernel" else \
+        ref.paged_attention
+    for blk, c in zip(model.layers, cache):
+        h = rmsnorm(x, blk.norm1, cfg.norm_eps)
+        if blk.kind == "attn":
+            q, k, v = attn_mod._qkv(blk.mixer, cfg, h)
+            q, k = attn_mod._rope(cfg, q, k, positions)
+            o_c = attn_mod.chunk_attend(q[:T], k[:T], v[:T], c["k"], c["v"],
+                                        c_tables, c_pool, chunks, impl=impl)
+            outs = [o_c.reshape(T, -1)]
+            if Bd:
+                attn_mod.write_kv(c["k"], c["v"], k[T:], v[T:], d_pool)
+                outs.append(attend(q[T:], c["k"], c["v"], d_tables,
+                                   d_lens + 1).reshape(Bd, -1))
+            out = torch.cat(outs) @ blk.mixer.wo
+        else:
+            xz = h @ blk.mixer.in_proj
+            ys = []
+            for i, (s0, n, off) in enumerate(zip(
+                    chunks.starts, chunks.lens, chunks.offsets)):
+                row = c_rows[i:i + 1]
+                y, state = mamba_mod.prefill_mixer(
+                    blk.mixer, cfg, xz[None, s0:s0 + n], impl=impl,
+                    state=_read_state(c, row) if off else None)
+                _write_state(c, row, state)
+                ys.append(y[0])
+            if Bd:
+                y_d, d_state = mamba_mod.decode_mixer(
+                    blk.mixer, cfg, xz[T:], _read_state(c, d_rows))
+                _write_state(c, d_rows, d_state)
+                ys.append(y_d)
+            out = torch.cat(ys) @ blk.mixer.out_proj
+        x = x + out
+        if blk.ffn_kind != "moe":
+            x = _ffn_residual(blk, cfg, x)
+        else:
+            x = torch.cat([
+                _ffn_residual(blk, cfg, x[None, :T], inference=True)[0],
+                _ffn_residual(blk, cfg, x[T:], dropless=True)])
+    last = torch.tensor([s0 + n - 1 for s0, n in zip(chunks.starts,
+                                                      chunks.lens)],
+                        device=dev)
+    logits = lm_logits(model, torch.cat([x[last], x[T:]]))[:, None]
+    return logits[:len(chunks)], logits[len(chunks):], cache
 
 
 def _ref_unified_pd(q_p, k_p, v_p, q_d, k_pages, v_pages, block_tables,

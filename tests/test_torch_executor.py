@@ -245,7 +245,10 @@ def _plan_for(case, eng):
         r.tokens_generated = 2
         r.cached_prefix_len = 6
         return StepPlan(prefill=PrefillLaunch([r], "waiting_prefill"))
-    return StepPlan(hybrid=HybridLaunch([(r, 8)]))
+    # a hybrid step runs (tests/test_torch_hybrid.py); its chunk after a
+    # session's cached prefix does not
+    r.cached_prefix_len = 3
+    return StepPlan(hybrid=HybridLaunch([(r, 5)]))
 
 
 @pytest.mark.parametrize("case", ["hybrid", "transfer", "price_batch",
