@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only-mesh      # the build, then phase 13
     python3 chip_smoke.py --only-hybrid    # the build, then phase 14
+    python3 chip_smoke.py --only-disagg    # the build, phase 6, phase 15
     python3 chip_smoke.py --gateway-runs N # phase 9 alone, N times
 
 Phases, each reported on its own line; any failure exits non-zero before
@@ -231,6 +232,25 @@ the result line:
                and with Jamba's float32 weights 1e-3 with its state rows);
                granite-8b on phase 8's lmsys trace in both modes.
                ``--only-hybrid`` runs the build and this phase alone.
+ 15. disagg  — disaggregated serving on granite-8b, after phase 9:
+               ``DisaggEngine`` + ``KernelExecutor`` over two KV pools on
+               the card (``OneCardServeConfig``: half of what the card
+               holds for KV after one copy of the weights each, the
+               staging pages of the prefill pool), the 8 requests served
+               and reclaimed, exactly ``flash_prefill`` and
+               ``paged_attention`` launched; every transfer's staging
+               equal to its prefill-pool pages and its landed decode-pool
+               pages equal to the staging
+               (``torch.equal``; the position the join's step writes again
+               within 0.1 of the slot's largest value, layer by layer,
+               which the slot before it planted in its place must exceed),
+               the join step's
+               logits (the first-token recompute) against the prefill's
+               last position (3e-2); the transfers' measured ms, bytes and
+               GB/s beside the perfmodel's charge, and the engine metrics
+               beside phase 6's RAPID and phase 14's hybrid; then phase 8's
+               lmsys trace in disagg beside phase 14's runs of it.
+               ``--only-disagg`` runs the build, phase 6 and this phase.
 Phase 9 also reports, read after each run (ROADMAP C8), the plans around
 every token stamped over 30 ms late net of plans.
 In phases 4, 5, 7, 8, 10, 12 and 13 the decode steps run as CUDA graphs,
@@ -279,6 +299,7 @@ from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels import unified_pd as up  # noqa: E402
+from repro_torch.core.executor import KernelExecutor  # noqa: E402
 from repro_torch.kvcache import kv_pages_for  # noqa: E402
 from repro_torch.launch import serve as serve_engine  # noqa: E402
 from repro_torch.launch import serve_real  # noqa: E402
@@ -1994,22 +2015,25 @@ def kernels_phase(gen):
 
 
 def granite_phase(gen):
-    """Phases 4, 6, 14 and 9 for granite-8b.  Returns the launch counts
-    by path and phase 14's record of the paged, offset flash_prefill."""
+    """Phases 4, 6, 14, 9 and 15 for granite-8b.  Returns the launch
+    counts by path and phase 14's record of the paged, offset
+    flash_prefill."""
     cfg = get_config("granite-8b")
     model = init_full(cfg)
     launches = {}
     launches["granite-8b"], summary, tokens = serve_full(model)
     say("profile", config=cfg.name, **profile_serving(model, cfg))
     graph_phase(model, serving_requests(cfg), gen)
-    rapid = {}
+    rapid, hybrid = {}, {}
     launches["granite-8b-engine"] = engine_full(model, (summary, tokens),
                                                 keep=rapid)
     with timed("hybrid"):
-        paged, hybrid_launches = hybrid_phase(model, gen, rapid)
+        paged, hybrid_launches = hybrid_phase(model, gen, rapid, hybrid)
     launches.update(hybrid_launches)
     with timed("gateway"):
         launches["granite-8b-gateway"] = gateway_phase(model)[0]
+    with timed("disagg"):
+        launches.update(disagg_phase(model, rapid, hybrid))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2335,14 +2359,16 @@ def chunked_first_token(model, prompt, chunk=HYBRID_CHUNK):
     return out
 
 
-def hybrid_phase(model, gen, rapid):
+def hybrid_phase(model, gen, rapid, keep=None):
     """Phase 14 on ``model``: the paged, offset flash_prefill at its
     shapes; hybrid serving of the smoke's 8 requests through
     ``HybridEngine`` + ``KernelExecutor`` beside ``rapid`` (phase 6's
     summary and tokens); the first mixed step and the first request's
     first token held to the plain path and to a whole-prompt prefill; and,
     for granite-8b, the reference's lmsys trace in both modes.  Returns
-    the kernel's record and the launch counts by path."""
+    the kernel's record and the launch counts by path, and puts the
+    hybrid run's summary and the lmsys runs' into ``keep`` when it is
+    given."""
     cfg = model.cfg
     rec = check_paged_prefill(gen, cfg)
     say("kernels", phase="paged_prefill", config=cfg.name,
@@ -2399,6 +2425,10 @@ def hybrid_phase(model, gen, rapid):
             **{m: {k: v[k] for k in ENGINE_KEYS + ("launches",
                                                    "preemptions")}
                for m, v in modes.items()})
+        if keep is not None:
+            keep["lmsys"] = modes
+    if keep is not None:
+        keep["summary"] = s
     return rec, by_path
 
 
@@ -2436,6 +2466,226 @@ def only_hybrid(gen):
     gc.collect()
     torch.cuda.empty_cache()
     return recs, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: disaggregated serving on one card
+# ---------------------------------------------------------------------------
+
+DISAGG_KERNELS = {"flash_prefill", "paged_attention"}
+# the recomputed position's K/V against the prefill's, by layer,
+# max|a-b|/max|b| of the slot: it comes from the decode path's hidden
+# state, which drifts from the prefill's layer by layer in bf16 (2.9e-2
+# at granite-8b's worst layer on an H100 80GB HBM3 at 700 W); a K/V of a
+# wrong position or token differs by the slot's magnitude, which the
+# neighbouring position's slot, planted in its place, must show
+TOL_RECOMPUTE = 0.1
+
+
+def transfer_checks(ex, engine, found):
+    """Wrap a split-pool ``KernelExecutor``'s ``transfer_seconds``,
+    ``_decode`` and ``_prefill`` from outside.  After a transfer (the
+    prefill pool's pages still held) it holds the staging, pages of the
+    same pool, to them (read layer by layer through the engine's block
+    list).  After a join's decode launch it holds the decode pool's pages
+    to the staging (its blocks, released by the launch, are written by no
+    prefill before the next plan), bit for bit but at the position the
+    join's step wrote again (``context_len - 1``), whose slot it holds
+    within TOL_RECOMPUTE, by layer, and against which it plants the slot
+    before it.  It keeps the last-position logits of each prefill and of
+    each join's step.  Appends to ``found``'s lists."""
+    page = engine.serve.page_size
+    real_t, real_d, real_p = ex.transfer_seconds, ex._decode, ex._prefill
+
+    def gather(cache, blocks):
+        idx = torch.tensor(blocks, dtype=torch.int64, device=DEVICE)
+        return [c[n].index_select(0, idx) for c in cache for n in "kv"]
+
+    def transfer_seconds(r, serve):
+        seconds = real_t(r, serve)
+        src = gather(ex.cache_p, engine.kv_p.blocks_of(r.rid))
+        staged = gather(ex.cache_p, ex.staged[r.rid])
+        found["staged"].append((r.rid, all(map(torch.equal, src, staged))))
+        found["transfers"].append(dict(ex.log[-1]))
+        return seconds
+
+    def landed(rid, n, staged):
+        p, slot = divmod(n, page)
+        q, before = divmod(n - 1, page)
+        got_all = gather(ex.cache, engine.kv.blocks_of(rid)[:len(staged)])
+        bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+        errs, faults = [], []
+        for i, (got, want) in enumerate(zip(got_all,
+                                            gather(ex.cache_p, staged))):
+            ne = got != want
+            ne[p, slot] = False
+            bad += ne.sum()
+            err = rel_err(got[p, slot], want[p, slot])
+            if i % 2:
+                errs[-1] = max(errs[-1], err)
+            else:
+                errs.append(err)
+            if n >= 1:
+                faults.append(rel_err(got[q, before], want[p, slot]))
+        found["landed"].append((rid, int(bad) == 0))
+        found["recompute_slot"].append(errs)
+        if faults:
+            found["slot_fault"].append(min(faults))
+
+    def decode(batch, arm_f, kv):
+        joins = [(i, r.rid, r.context_len - 1, list(ex.staged[r.rid]))
+                 for i, r in enumerate(batch) if r.rid in ex.staged]
+        wall = real_d(batch, arm_f, kv)
+        for i, rid, n, staged in joins:
+            found["logits"].setdefault(rid, {})["join"] = \
+                ex.graphs.logits[i, -1].float().clone()
+            landed(rid, n, staged)
+        return wall
+
+    def prefill(r, kv):
+        forward = tf.forward
+
+        def last(*args, **kw):
+            logits, aux = forward(*args, **kw)
+            found["logits"].setdefault(r.rid, {})["prefill"] = \
+                logits[0, -1].float().clone()
+            return logits, aux
+        tf.forward = last
+        try:
+            return real_p(r, kv)
+        finally:
+            tf.forward = forward
+
+    ex.transfer_seconds, ex._decode, ex._prefill = \
+        transfer_seconds, decode, prefill
+
+
+@contextlib.contextmanager
+def checked_transfers(found):
+    """Every split-pool ``KernelExecutor`` bound meanwhile checks its
+    transfers and keeps its first logits (the prefill's last position,
+    the join's step) in ``found`` (``transfer_checks``)."""
+    for k in ("staged", "landed", "transfers", "recompute_slot",
+              "slot_fault"):
+        found[k] = []
+    found["logits"] = {}
+    real = KernelExecutor.bind
+
+    def bind(ex, engine):
+        real(ex, engine)
+        if ex.cache_p is not None:
+            transfer_checks(ex, engine, found)
+    KernelExecutor.bind = bind
+    try:
+        yield
+    finally:
+        KernelExecutor.bind = real
+
+
+def transfer_rows(transfers):
+    """Each transfer: rid, tokens, pages, MB staged, ms measured (CUDA
+    events) and GB/s (staged bytes over it), the perfmodel's ms."""
+    return [{"rid": e["rids"][0], "tokens": e["tokens"],
+             "pages": e["pages"], "mb": e["bytes"] / 1e6, "ms": e["ms"],
+             "gb_per_s": e["bytes"] / e["ms"] / 1e6,
+             "priced_ms": e["priced_ms"]} for e in transfers]
+
+
+def disagg_phase(model, rapid, hybrid):
+    """Phase 15 on ``model`` (granite-8b): the smoke's 8 requests through
+    ``DisaggEngine`` + ``KernelExecutor`` on the one-card split, each
+    transfer and each first-token recompute checked, beside ``rapid``
+    (phase 6's summary) and ``hybrid`` (phase 14's summary and lmsys
+    runs; empty under ``--only-disagg``); then the lmsys trace in disagg.
+    Returns the launch counts by path."""
+    cfg = model.cfg
+    serve = serve_engine.serve_config(mode="disagg")
+    reqs = serving_requests(cfg)
+    found = {}
+    with checked_transfers(found):
+        s, launches, tokens = engine_run(model, "disagg", reqs)
+    say("disagg", phase="run", config=cfg.name, chips=serve.chips,
+        disagg_split=serve.disagg_split, slots=serve.max_batch_slots,
+        kernel_launches=launches, **{k: v for k, v in s.items() if k not in (
+            "fused_f_decode", "fused_arm_f_decode", "arm_modes",
+            "transfers")})
+    say("disagg", phase="transfers", config=cfg.name,
+        clock="CUDA events after a synchronize; charged on the engine's "
+        "clock", summary=s["transfers"],
+        transfers=transfer_rows(found["transfers"]))
+    logits = {rid: rel_err(got["join"], got["prefill"])
+              for rid, got in found["logits"].items()}
+    by_layer = [max(e) for e in zip(*found["recompute_slot"])]
+    say("disagg", phase="checks", config=cfg.name,
+        staged_equal=sum(ok for _, ok in found["staged"]),
+        landed_equal=sum(ok for _, ok in found["landed"]),
+        transfers=len(found["staged"]), joins=len(found["landed"]),
+        metric="max|a-b|/max|b|",
+        recompute_slot_by_layer=by_layer, recompute_slot_limit=TOL_RECOMPUTE,
+        fault_slot_before=min(found["slot_fault"], default=None),
+        recompute_logits=logits, logits_limit=TOL_LOGITS)
+    same = sum(tokens.get(r.rid) == rapid["tokens"][r.rid] for r in reqs)
+    say("disagg", phase="beside", config=cfg.name,
+        clock="engine clock (measured launches and transfers)",
+        disagg={k: s[k] for k in ENGINE_KEYS},
+        rapid={k: rapid["summary"][k] for k in ENGINE_KEYS},
+        hybrid={k: hybrid["summary"][k] for k in ENGINE_KEYS}
+        if "summary" in hybrid else "not run",
+        requests_tokens_equal_rapid=same, requests=len(reqs))
+    require_served(s, f"disagg {cfg.name}")
+    launched = {k for k, n in launches.items() if n > 0}
+    require(launched == DISAGG_KERNELS,
+            f"disagg {cfg.name}: launched {sorted(launched)}, its path runs "
+            f"{sorted(DISAGG_KERNELS)}: {launches}")
+    require(s["launches"].get("transfer", 0) == len(reqs) and
+            len(found["staged"]) == len(found["landed"]) == len(reqs),
+            f"disagg {cfg.name}: {s['launches']}, {len(found['staged'])} "
+            f"staged, {len(found['landed'])} landed, {len(reqs)} requests")
+    require(all(ok for _, ok in found["staged"] + found["landed"]),
+            f"disagg {cfg.name}: a transfer's pages differ: staged "
+            f"{found['staged']}, landed {found['landed']}")
+    require(max(by_layer) < TOL_RECOMPUTE,
+            f"disagg {cfg.name}: the recomputed position's K/V differs "
+            f"from the prefill's: {by_layer}")
+    require(min(found["slot_fault"]) > TOL_RECOMPUTE,
+            f"disagg {cfg.name}: the slot before the recomputed one, planted "
+            f"in its place, moves it by {min(found['slot_fault'])}, within "
+            f"{TOL_RECOMPUTE}")
+    require(sorted(logits) == sorted(r.rid for r in reqs) and
+            all(e < TOL_LOGITS for e in logits.values()),
+            f"disagg {cfg.name}: the first-token recompute's logits differ "
+            f"from the prefill's: {logits}")
+    by_path = {f"{cfg.name}-disagg": launches}
+    trace, arrivals = serve_engine.trace_requests(cfg, **LLAMA_TRACE)
+    lmsys, by_path[f"{cfg.name}-disagg-lmsys"], _ = engine_run(
+        model, "disagg", trace, arrivals)
+    require_served(lmsys, f"disagg {cfg.name} on lmsys")
+    launched = {k for k, n in by_path[f"{cfg.name}-disagg-lmsys"].items()
+                if n > 0}
+    require(launched == DISAGG_KERNELS,
+            f"disagg {cfg.name} on lmsys: launched {sorted(launched)}")
+    keys = ENGINE_KEYS + ("launches", "preemptions")
+    say("disagg", phase="lmsys", config=cfg.name, **LLAMA_TRACE,
+        requests=len(trace), clock="engine clock (measured launches and "
+        "transfers)", disagg={k: lmsys[k] for k in keys},
+        transfers=lmsys["transfers"],
+        **{m: {k: v[k] for k in keys}
+           for m, v in hybrid.get("lmsys", {}).items()})
+    return by_path
+
+
+def only_disagg():
+    """``--only-disagg``: phase 15 alone on granite-8b, after phase 6's
+    RAPID engine run.  Returns the launch counts by path."""
+    model = init_full(get_config("granite-8b"))
+    serve_engine.warm_up(model)     # as phase 4 runs before phase 6
+    rapid = {}
+    launches = {"granite-8b-engine": engine_full(model, None, keep=rapid)}
+    launches.update(disagg_phase(model, rapid, {}))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3951,6 +4201,9 @@ def main(argv=None):
     ap.add_argument("--only-hybrid", action="store_true",
                     help="run only phase 14 (after the build, and phase "
                     "6's RAPID run it is set beside)")
+    ap.add_argument("--only-disagg", action="store_true",
+                    help="run only phase 15 (after the build, and phase "
+                    "6's RAPID run it is set beside)")
     ap.add_argument("--only-cells", nargs="?", const=str(CELL_SEED),
                     metavar="SEEDS",
                     help="run only phase 12 (after the build); with "
@@ -3998,6 +4251,11 @@ def main(argv=None):
                 kernels={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")}
                          for k, v in recs.items()})
+            return 0
+        if args.only_disagg:
+            with timed("disagg"):
+                launches = only_disagg()
+            say("disagg", phase="only", launches=launches)
             return 0
         if args.only_mesh:
             with timed("mesh"):

@@ -304,6 +304,16 @@ class ServeConfig:
     async_scheduling: bool = True
 
 
+@dataclass(frozen=True)
+class OneCardServeConfig(ServeConfig):
+    """The port's replica on one card (ROADMAP C4): a split-pool engine's
+    two KV pools share the card and its one copy of the weights, each with
+    half of what the card holds for KV, and the prefill pool also holds a
+    finished prefill's staged pages until they join the decode pool.  Only
+    the launcher's ``serve_config`` builds it; a ``ServeConfig`` of any
+    ``chips`` and ``disagg_split`` keeps the reference's pools."""
+
+
 ARCH_REGISTRY: dict = {}
 _REDUCED_REGISTRY: dict = {}
 _ONE_CARD_REGISTRY: dict = {}

@@ -306,6 +306,13 @@ class Engine:
             if plan.decode is not None:
                 plan.decode.joins = [r for r in plan.decode.joins
                                      if r.rid not in failed_admits]
+        if plan.prefill is not None and plan.prefill.pool == "prefill":
+            # the port's order (ROADMAP C4): the prefill pool's pages exist
+            # before the launch that writes them, whose block tables a
+            # ``KernelExecutor`` reads; the perfmodel reads no ``kv_p``
+            for r in plan.prefill.batch:
+                self.kv_p.allocate_prompt(r.rid,
+                                          self.scheduler.kv_tokens(r))
         # a lane ends ``duration`` after ``now``, which is read before the
         # launch: on a real-time clock a ``KernelExecutor`` has already
         # spent the launch's wall time inside ``execute`` (on the virtual
@@ -319,9 +326,9 @@ class Engine:
                 if plan.prefill.pool == "prefill":
                     # split pools never park session KV, and the decode-
                     # side clamp runs only after transfer: drop the
-                    # optimistic prefix claim before pricing the prefill
+                    # optimistic prefix claim (after pricing, as the
+                    # reference does)
                     r.cached_prefix_len = 0
-                    self.kv_p.allocate_prompt(r.rid, r.prompt_len)
                 r.state = State.PREFILLING
                 r.t_prefill_start = now
                 self.stream.emit(PhaseEvent(r.rid, now, "prefill"))
@@ -837,14 +844,19 @@ class HybridEngine(Engine):
 
 
 class DisaggEngine(Engine):
-    """DistServe-style split-pool baseline."""
+    """DistServe-style split-pool baseline.  ``executor`` (the port's
+    addition) runs its plans, e.g. a ``KernelExecutor`` over two KV pools
+    on one card (``chips`` 1, ``disagg_split`` (1, 1)); default: the
+    perfmodel's."""
 
     def __init__(self, cfg, serve: ServeConfig, hw: HardwareSpec = TPU_V5E,
                  loop: Optional[EventLoop] = None,
-                 preempt_policy: PreemptionPolicy = DEFAULT_PREEMPTION):
+                 preempt_policy: PreemptionPolicy = DEFAULT_PREEMPTION,
+                 executor: Optional[Executor] = None):
         super().__init__(cfg, serve, hw,
                          scheduler=DisaggScheduler(cfg, serve, hw),
-                         loop=loop, preempt_policy=preempt_policy)
+                         executor=executor, loop=loop,
+                         preempt_policy=preempt_policy)
 
 
 ENGINES = {

@@ -12,7 +12,9 @@ interface: ``KernelExecutor`` below runs each plan's launches through the
 port's model and CUDA kernels at once (``unified_pd`` for colocated
 plans, ``flash_prefill`` and ``paged_attention`` for launches alone, the
 paged, offset ``flash_prefill`` and ``paged_attention`` for a hybrid
-step) and reports measured durations.  The other classes are copies of
+step; a split-pool plan's lanes one after the other over two pools, with
+a measured device copy for each KV transfer) and reports measured
+durations.  The other classes are copies of
 ``repro/core/executor.py``.
 """
 from __future__ import annotations
@@ -24,7 +26,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.events import FinishedEvent, PhaseEvent
+from repro_torch.config import OneCardServeConfig
+from repro_torch.core.events import FinishedEvent, PhaseEvent, RejectedEvent
 from repro_torch.core.scheduler import SchedView, StepPlan
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.models import transformer as tf
@@ -240,6 +243,26 @@ class PerfModelExecutor(Executor):
             (serve.kv_transfer_gbps * 1e9)
 
 
+def check_split_pools(cfg) -> None:
+    """Raise for a model whose split-pool (disagg) serving is not run on
+    the card: recurrent layers, whose state the decode side's first-token
+    recompute would advance twice and whose rows would need a transfer of
+    their own, and a sliding window, whose ring under a transfer is
+    untried (ROADMAP A11)."""
+    recurrent = sorted(set(cfg.layer_pattern) & {"mamba", "mlstm", "slstm"})
+    if recurrent:
+        raise NotImplementedError(
+            f"{cfg.name}: split-pool (disagg) serving of recurrent layers "
+            f"({', '.join(recurrent)}) is ROADMAP A11: the decode side's "
+            f"first-token recompute would apply the last token to the state "
+            f"a second time, and the state row would need a transfer of its "
+            f"own")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: split-pool (disagg) serving under a sliding window "
+            f"is ROADMAP A11: a transfer of its ring is untried")
+
+
 class KernelExecutor(Executor):
     """Run a colocated engine's plans on the device, through the port's
     model and CUDA kernels, and report measured durations.
@@ -324,18 +347,60 @@ class KernelExecutor(Executor):
     alone.  A sliding window and xLSTM layers are not chunked (ROADMAP
     A5), and a hybrid plan of such a model raises.
 
-    What it does not run raises ``NotImplementedError``: split-pool
-    engines and their KV transfers (disagg), what-if ``price_batch``
-    pricing (it would run the model), and a prefill or chunk after a
-    cached prefix (a session's, or a gateway checkpoint's restore).
+    Split pools (``DisaggEngine``, the disaggregated baseline) on one
+    card (``OneCardServeConfig``).  ``bind`` allocates the decode pool as
+    above and a second ``tf.init_cache``, the prefill pool, at ``kv_p``'s
+    block count with no spare page; the model and its one copy of the
+    weights serve both lanes.  The lanes
+    take turns on the card, as every launch does (``busy_until``): a
+    plan's decode launch runs first, then its prompts, one at a time,
+    each into the prefill pool through ``kv_p``'s block table (its
+    prompt, or a resumed request's context).  A prefill emits no token:
+    the decode side recomputes the first one, as vLLM v1 does.  When a
+    prefill is done the engine calls ``transfer_seconds``: the request's
+    pages are copied, layer by layer, into staging while the engine still
+    holds them (it frees them when the transfer arrives, and an
+    ``AdmitRetry`` may keep the request from the decode pool for many
+    steps while new prefills reuse them).  The staging is pages of the
+    prefill pool itself, taken from ``kv_p``'s allocator: the scheduler
+    admitted the prefill with room for them, and holds later prefills
+    back while they stay staged, so staging needs no memory beyond the
+    two pools and waits with the prefills instead of outgrowing the card.
+    ``staged`` maps a request to its staging blocks.  The copy is
+    timed with CUDA events after a synchronize, and the engine's clock
+    is charged that time where the perfmodel charges
+    ``kv_transfer_bytes`` over ``kv_transfer_gbps``.  At the request's
+    first decode step (its join) the staging is copied into the blocks
+    the decode pool gave it, inside that launch, and released after it.
+    The join's step is an ordinary decode whose input is the context's
+    last token at position ``context_len - 1``: it writes that
+    position's K/V again and emits token ``tokens_generated``.  The
+    decode pool's allocation holds the position each step writes (the
+    engine admits a transfer for its whole context), so no step of a
+    split-pool engine uses a spare page.  Staging is released at the
+    join, and at a request's rejection, finish or preemption.  A model
+    with recurrent layers (the recompute would apply the last token to
+    the state twice, and the row would need a transfer of its own) or a
+    sliding window (its ring under a transfer is untried) is refused at
+    ``bind`` (ROADMAP A11).  Concurrent lanes, each with a share of the
+    SMs, are ROADMAP A4.
 
-    ``bind(engine)`` allocates the pool at the engine's KV block count
+    What it does not run raises ``NotImplementedError``: a KV transfer
+    of a colocated engine, what-if ``price_batch`` pricing (it would run
+    the model), and a prefill or chunk after a cached prefix (a
+    session's, or a gateway checkpoint's restore; a split-pool prefill
+    drops the claim, as the engine does).
+
+    ``bind(engine)`` allocates the pools at the engine's KV block counts
     and subscribes to its events; ``log`` holds one record per launch,
     ``graph`` saying how a decode launch ran (``DecodeGraphs.ran``:
     "capture", "replay" or "eager"), ``plan`` which ``execute`` call it
     belongs to, ``resumed`` how many generated tokens a prefill ran over
     after the prompt, and ``host_end`` the host's ``time.perf_counter()``
-    when its tokens reached the host.
+    when its tokens reached the host; and one record per KV transfer
+    (``kind`` "transfer": its rid, tokens, pages, ``bytes`` staged,
+    ``ms`` measured and charged, ``priced_ms`` the perfmodel's charge,
+    ``wall_s`` the host's seconds with the synchronize).
     """
 
     reprefills_context = True
@@ -358,6 +423,12 @@ class KernelExecutor(Executor):
         # rid -> (spare block, the position whose K/V it holds)
         self._spare: Dict[int, tuple] = {}
         self.cache = None
+        # split pools: the prefill pool and its manager, and per request
+        # in transfer the prefill-pool blocks its pages are staged in
+        self.cache_p = self.kv_p = None
+        self.staged: Dict[int, List[int]] = {}
+        self._page_bytes = 0
+        self._loop = None
         self.graphs: Optional[DecodeGraphs] = None
         self.num_blocks = 0
         self.busy_until = 0.0
@@ -369,13 +440,19 @@ class KernelExecutor(Executor):
     # -- set-up ---------------------------------------------------------------
     def bind(self, engine) -> None:
         """Allocate the paged pool: the engine's block count, whole, plus
-        one spare page per decode slot, and the state rows; and take back
-        a request's row and spare page when it leaves the engine."""
-        if not engine.scheduler.colocated:
-            raise NotImplementedError(
-                "KernelExecutor runs colocated engines only: split-pool "
-                "(disagg) execution is ROADMAP A11")
-        if engine.scheduler.mode == "hybrid":
+        one spare page per decode slot, and the state rows; for a
+        split-pool engine also the prefill pool at ``kv_p``'s block
+        count; and take back a request's row, spare page and staging when
+        it leaves the engine."""
+        sched = engine.scheduler
+        if not sched.colocated:
+            check_split_pools(self.cfg)
+            if not isinstance(engine.serve, OneCardServeConfig):
+                raise NotImplementedError(
+                    "KernelExecutor runs split pools on one card "
+                    "(OneCardServeConfig); pools on chips of their own, "
+                    "with a transfer between cards, are ROADMAP A11")
+        if sched.mode == "hybrid":
             self._check_chunked()
         self.num_blocks = engine.kv.allocator.num_blocks
         if self.state_rows is None:
@@ -385,13 +462,28 @@ class KernelExecutor(Executor):
             self.cfg, self.num_blocks + self.serve.max_batch_slots,
             self.serve.page_size, self.state_rows, device=self.device,
             dtype=self.model.tok.dtype)
+        if not sched.colocated:
+            self.kv_p = engine.kv_p
+            self.cache_p = tf.init_cache(
+                self.cfg, self.kv_p.allocator.num_blocks,
+                self.serve.page_size, 0, device=self.device,
+                dtype=self.model.tok.dtype)
+            self._page_bytes = sum(c[n][0].numel() * c[n].element_size()
+                                   for c in self.cache_p for n in "kv")
+            self._loop = engine.loop
+            self._priced = PerfModelExecutor(
+                self.cfg, self._priced.hw, colocated=False,
+                lane_chips=sched.lane_chips(self.serve))
         self.graphs = DecodeGraphs(self.model, self.cache,
                                    max_batch=self.serve.max_batch_slots)
         engine.subscribe(self._on_event)
 
     @property
     def pool_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for c in self.cache
+        """The K/V bytes of the pools: the decode pool, and the prefill
+        pool of a split-pool engine."""
+        return sum(t.numel() * t.element_size()
+                   for c in self.cache + (self.cache_p or [])
                    for name, t in c.items() if name in ("k", "v"))
 
     @property
@@ -399,9 +491,10 @@ class KernelExecutor(Executor):
         return len(self._free_rows)
 
     def _on_event(self, ev) -> None:
-        if isinstance(ev, FinishedEvent) or (
+        if isinstance(ev, (FinishedEvent, RejectedEvent)) or (
                 isinstance(ev, PhaseEvent) and ev.phase == "preempted"):
             self._spare.pop(ev.rid, None)
+            self._unstage(ev.rid)
             row = self._row_of.pop(ev.rid, None)
             if row is not None:
                 self._free_rows.append(row)
@@ -413,9 +506,57 @@ class KernelExecutor(Executor):
             "pricing of many plans is the perfmodel's (ROADMAP A11)")
 
     def transfer_seconds(self, r, serve) -> float:
-        raise NotImplementedError(
-            "KV transfers (disagg) are not run on the device yet (ROADMAP "
-            "A11)")
+        """Copy ``r``'s pages into staging, pages of the prefill pool that
+        ``kv_p``'s allocator gives, and return the copy's measured seconds
+        (CUDA events after a synchronize; the host's clock on the CPU)
+        after whatever the card still runs (``busy_until``)."""
+        if self.cache_p is None:
+            raise NotImplementedError(
+                "a colocated engine's prefill writes its decode pool: KV "
+                "transfers are run for split-pool (disagg) engines only "
+                "(ROADMAP A11)")
+        if r.rid in self.staged:
+            raise RuntimeError(f"request {r.rid} already holds staging")
+        blocks = self.kv_p.blocks_of(r.rid)
+        # the scheduler admitted the prefill with room for these
+        staged = self.kv_p.allocator.alloc(len(blocks))
+        src = self._ints(blocks, torch.int64)
+        dst = self._ints(staged, torch.int64)
+        now = self._loop.now
+        wait = max(0.0, self.busy_until - now)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        _copy_pages(self.cache_p, dst, self.cache_p, src)
+        if cuda:
+            end.record()
+            end.synchronize()
+        host_end = time.perf_counter()
+        seconds = start.elapsed_time(end) / 1e3 if cuda else host_end - t0
+        self.staged[r.rid] = staged
+        self.log.append(dict(
+            kind="transfer", plan=self._plans, t_start=now + wait,
+            wall_s=host_end - t0, host_end=host_end,
+            device_ms=seconds * 1e3 if cuda else None, graph=None,
+            rids=[r.rid], tokens=self.kv_p.tokens_of(r.rid),
+            pages=len(blocks), bytes=len(blocks) * self._page_bytes,
+            ms=seconds * 1e3,
+            priced_ms=self._priced.transfer_seconds(r, serve) * 1e3,
+            prefill_tokens=0, resumed=0, decode_bs=0, f_decode=None,
+            arm_f_decode=None))
+        self.busy_until = now + wait + seconds
+        return wait + seconds
+
+    def _unstage(self, rid: int) -> None:
+        """Give ``rid``'s staging blocks, if it holds any, back to
+        ``kv_p``'s allocator."""
+        blocks = self.staged.pop(rid, None)
+        if blocks is not None:
+            self.kv_p.allocator.free(blocks)
 
     def _check_chunked(self) -> None:
         """Raise for a model whose prompts the hybrid steps cannot chunk."""
@@ -440,8 +581,11 @@ class KernelExecutor(Executor):
         if plan.hybrid is not None:
             return self._execute_hybrid(plan, view)
         prefill = list(plan.prefill.batch) if plan.prefill else []
+        split = self.cache_p is not None
         for r in prefill:
-            if r.cached_prefix_len > 0:
+            # a split-pool prefill runs the whole prompt: the engine drops
+            # the claim after pricing (the prefill pool holds no prefix)
+            if r.cached_prefix_len > 0 and not split:
                 raise NotImplementedError(
                     f"request {r.rid}: prefill after a cached prefix (a "
                     f"session's, or a restored KV checkpoint's) is ROADMAP "
@@ -456,14 +600,14 @@ class KernelExecutor(Executor):
         d_out = p_out = None
         if decode:
             f = plan.decode.f_decode
-            if prefill:
+            if prefill and not split:
                 spent += self._fused(prefill.pop(0), decode,
                                      1.0 if f is None else f, f, view.kv)
             else:
                 spent += self._decode(decode, f, view.kv)
             d_out = LaunchOutcome(wait + spent, priced.decode.cost)
         for r in prefill:
-            spent += self._prefill(r, view.kv)
+            spent += self._prefill(r, view.kv_p if split else view.kv)
         if plan.prefill:
             p_out = LaunchOutcome(wait + spent, priced.prefill.cost)
         self.busy_until = view.now + wait + spent
@@ -591,13 +735,18 @@ class KernelExecutor(Executor):
         """(tokens (B,1), cached lengths (B,), block tables padded to
         ``table_width``, state rows) of a decode batch; a request on a
         page boundary below the window (or with none) writes into its
-        slot's spare page."""
+        slot's spare page.  A request's input is its context's last
+        token, at position ``n``: a split-pool joiner that has generated
+        nothing yet recomputes its first token from its prompt's last."""
         page, window = self.serve.page_size, self.cfg.sliding_window
+        # a split-pool engine allocates the position each step writes too
+        # (the class docstring), so its requests never reach a spare page
+        ahead = int(self.cache_p is not None)
         toks, lens, tables, rows = [], [], [], []
         for i, r in enumerate(decode):
             out = self.tokens[r.rid]
             n = r.prompt_len + len(out) - 1       # tokens with K/V cached
-            if kv.tokens_of(r.rid) != n:
+            if kv.tokens_of(r.rid) != n + ahead:
                 raise RuntimeError(
                     f"request {r.rid}: {n} tokens cached, the engine's "
                     f"allocation holds {kv.tokens_of(r.rid)}")
@@ -606,7 +755,7 @@ class KernelExecutor(Executor):
                 spare = self.num_blocks + i
                 blocks.append(spare)
                 self._spare[r.rid] = (spare, n)
-            toks.append([out[-1]])
+            toks.append([out[-1] if out else int(self.prompts[r.rid][-1])])
             lens.append(n)
             tables.append(ring_table(blocks, window, page))
             rows.append(self._row_of[r.rid])
@@ -677,13 +826,17 @@ class KernelExecutor(Executor):
         return wall
 
     def _prefill(self, r, kv) -> float:
+        """Prefill ``r`` alone: into the decode pool, emitting its first
+        token, or (split pools) into the prefill pool, emitting none."""
         vocab = self.cfg.vocab_size
+        split = self.cache_p is not None
+        cache = self.cache_p if split else self.cache
 
         def run():
             toks, pos, table, row = self._prompt_inputs(r, kv)
             logits, aux = tf.forward(self.model, toks, pos, return_aux=True,
                                      last_only=True)
-            tf.write_prefill_to_cache(self.cache, aux, table, row,
+            tf.write_prefill_to_cache(cache, aux, table, row,
                                       window=self.cfg.sliding_window)
             return tf.greedy_sample(logits, vocab)[:, 0]
 
@@ -691,21 +844,46 @@ class KernelExecutor(Executor):
                                  prefill_tokens=r.context_len,
                                  resumed=r.tokens_generated, decode_bs=0,
                                  f_decode=None, arm_f_decode=None)
-        self.tokens[r.rid] += out
+        if not split:
+            self.tokens[r.rid] += out
         return wall
 
+    def _land(self, joins, kv) -> None:
+        """Copy the split-pool joiners' staged pages into the blocks the
+        decode pool gave each (its first ones: its allocation holds them
+        all, and the position its step writes), all in one copy a layer."""
+        src, dst = [], []
+        for r in joins:
+            staged = self.staged[r.rid]
+            blocks = kv.blocks_of(r.rid)
+            if len(blocks) < len(staged):
+                raise RuntimeError(
+                    f"request {r.rid}: {len(staged)} pages staged, "
+                    f"{len(blocks)} blocks in the decode pool")
+            src += staged
+            dst += blocks[:len(staged)]
+        if src:
+            _copy_pages(self.cache, self._ints(dst, torch.int64),
+                        self.cache_p, self._ints(src, torch.int64))
+
     def _decode(self, decode, arm_f, kv) -> float:
+        joins = [r for r in decode if r.rid in self.staged]
+
         def run():
             self._flush_spares(kv)
+            self._land(joins, kv)
             return self.graphs.step(*self._decode_inputs(decode, kv))
 
         out, wall = self._launch("decode", run,
                                  rids=[r.rid for r in decode],
                                  prefill_tokens=0, resumed=0,
                                  decode_bs=len(decode),
-                                 f_decode=None, arm_f_decode=arm_f)
+                                 f_decode=None, arm_f_decode=arm_f,
+                                 joins=[r.rid for r in joins])
         for r, t in zip(decode, out):
             self.tokens[r.rid].append(t)
+        for r in joins:
+            self._unstage(r.rid)
         return wall
 
     def _fused(self, r_p, decode, f: float, arm_f, kv) -> float:
@@ -733,3 +911,13 @@ class KernelExecutor(Executor):
         for r, t in zip(decode, out[1:]):
             self.tokens[r.rid].append(t)
         return wall
+
+
+def _copy_pages(dst_cache, dst: torch.Tensor, src_cache,
+                src: torch.Tensor) -> None:
+    """Copy pages ``src`` of every layer's K and V in ``src_cache`` into
+    pages ``dst`` of ``dst_cache`` (an attention-only model's caches;
+    int64 indices on the device)."""
+    for d, s in zip(dst_cache, src_cache):
+        for name in ("k", "v"):
+            d[name].index_copy_(0, dst, s[name].index_select(0, src))

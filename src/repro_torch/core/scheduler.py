@@ -38,6 +38,7 @@ import dataclasses
 import itertools
 from typing import Dict, List, Mapping, Optional, Tuple
 
+from repro_torch.config import OneCardServeConfig
 from repro_torch.core.queues import IndexedQueue
 from repro_torch.core.request import Request, State
 from repro_torch.core.resource_manager import (AdaptiveResourceManager,
@@ -480,7 +481,17 @@ class HybridScheduler(Scheduler):
 
 class DisaggScheduler(Scheduler):
     """Split P/D pools; KV transfer on the critical path; decode-side
-    admission with timed backpressure retries (§3.2)."""
+    admission with timed backpressure retries (§3.2).  Both pools admit
+    and allocate ``kv_tokens`` (the port's: a resumed request's context
+    under ``reprefill_context``, else its prompt, as the reference).
+
+    On one card (``OneCardServeConfig``, the port's, ROADMAP C4) the two
+    pools split what the card holds for KV after one copy of the weights,
+    and a transfer's staged pages stay in the prefill pool until they join
+    the decode pool (``KernelExecutor.transfer_seconds``): a prefill is
+    admitted only with room for its pages twice over, its own and its
+    staging's, and pages still staged count against the pool, so staging
+    waits with the prefills it holds back and never outgrows the pool."""
 
     mode = "disagg"
     lanes = ("prefill", "decode")
@@ -503,6 +514,13 @@ class DisaggScheduler(Scheduler):
         self.chips_p, self.chips_d = serve.disagg_split
 
     def pool_blocks(self, cfg, serve, hw: HardwareSpec) -> Dict[str, int]:
+        if isinstance(serve, OneCardServeConfig):
+            # one copy of the weights, shared by both lanes: what the card
+            # holds for KV after it, split evenly between the two pools
+            # (the reference's even split of one chip gives (0, 0))
+            half = kv_pool_blocks(cfg, hw, 1, serve.page_size,
+                                  serve.kv_reserve_frac) // 2
+            return {"decode": half, "prefill": half}
         # each pool holds a full weight replica; long-lived KV capacity
         # only exists on the decode side (the §3.2.2 imbalance)
         return {
@@ -541,7 +559,7 @@ class DisaggScheduler(Scheduler):
                 # once admitted, self-preempting on every decode step —
                 # the ROADMAP item 5 livelock) forever
                 plan.rejects.append((r, None))
-            elif kv_pages_for(r.prompt_len, ps) > \
+            elif kv_pages_for(self.kv_tokens(r), ps) > \
                     view.kv.allocator.free_count:
                 # decode pool full: back-pressure; retry next decode step
                 plan.retries.append(AdmitRetry(r, serve.slo.itl_ms / 1e3))
@@ -552,10 +570,14 @@ class DisaggScheduler(Scheduler):
         # -- prefill pool admission + batch formation --------------------
         if not view.lanes["prefill"].busy:
             free_p = view.kv_p.allocator.free_count
+            # on one card a prefill's pages are staged in its own pool
+            times = 2 if isinstance(serve, OneCardServeConfig) else 1
             batch: List[Request] = []
             tokens = 0
             for r in view.queues["waiting_prefill"]:
-                if not self._fits_pool(r.prompt_len, view.kv_p, ps) or \
+                n = self.kv_tokens(r)
+                need = times * kv_pages_for(n, ps)
+                if need > view.kv_p.allocator.num_blocks or \
                         not self._fits_pool(
                             r.prompt_len + r.max_new_tokens, view.kv, ps):
                     # oversized for the prefill pool (queue-head wedge) or
@@ -565,7 +587,6 @@ class DisaggScheduler(Scheduler):
                     # self-preempting on every step (ROADMAP item 5)
                     plan.rejects.append((r, "waiting_prefill"))
                     continue
-                need = kv_pages_for(r.prompt_len, ps)
                 if need > free_p:
                     break
                 if batch and tokens + r.prompt_len > serve.prefill_max_tokens:

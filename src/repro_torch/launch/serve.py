@@ -2,8 +2,7 @@
 a ``KernelExecutor`` runs through the port's model and CUDA kernels.
 
 The port's counterpart of ``repro/launch/serve.py``, restricted to one
-replica on a real model, in one of two of the reference's modes
-(``--mode``):
+replica on a real model, in the reference's modes (``--mode``):
   * ``rapid`` (default) — ``RapidEngine``, the paper's: whole prompts
     prefilled beside the decode batch, with the ARM's ``f_decode`` in every
     fused step (``unified_pd``);
@@ -11,15 +10,29 @@ replica on a real model, in one of two of the reference's modes
     vLLM's chunked prefill): one batch a step, the running decodes plus
     prompt chunks of at most ``--chunk`` tokens (default 512, as the
     reference's) up to the token budget (2048), the chunks attending
-    through the paged, offset ``flash_prefill``.
-``--mode disagg`` and ``--mode all`` raise ``NotImplementedError``: split
-pools with a KV transfer are not run on one card yet (ROADMAP A11).  It
-runs a list of requests known in advance (below), or, with ``--serve
+    through the paged, offset ``flash_prefill``;
+  * ``disagg`` — ``DisaggEngine``, the disaggregated baseline (DistServe,
+    vLLM v1's transfer): whole prompts prefilled into a prefill pool, each
+    request's K/V copied on the device into the decode pool's side
+    (measured, and charged on the engine's clock), its first token
+    recomputed by the decode lane.  On one card
+    (``OneCardServeConfig``) one copy of the weights serves both lanes,
+    which take turns, and what the card holds for KV after the weights is
+    split evenly between the two pools (``DisaggScheduler.pool_blocks``,
+    ROADMAP C4), the prefill pool also holding each transfer's staged
+    pages until they join; a model with recurrent layers or a sliding
+    window is refused (ROADMAP A11);
+  * ``all`` — the three in turn over the same requests, each engine's
+    pools freed before the next, one line a mode in the reference's
+    format (throughput, goodput, TTFT p95, ITL p95, SLO attainment), then
+    one JSON line of the summaries.
+It runs a list of requests known in advance (below), or, with ``--serve
 http``, the reference's online gateway (``serving/gateway.py``,
 ``serving/http.py``): admission, routing, NDJSON token streams with
 backpressure, heartbeats, failover and cancellation, over one worker of
-the mode on the card.  It leaves out the reference launcher's priced
-fleets (``--mix``, ``--replicas``) and its multi-class workloads.
+``rapid`` or ``hybrid`` on the card (``disagg`` and ``all`` online are
+ROADMAP A11).  It leaves out the reference launcher's priced fleets
+(``--mix``, ``--replicas``) and its multi-class workloads.
 
 The online server.  The body of ``POST /v1/generate`` carries a prompt
 length, not tokens: a request's prompt tokens are drawn with numpy from
@@ -43,13 +56,16 @@ that can never fit the pool is rejected by the engine, as in the
 reference.  Without ``--trace``, ``serve_real.make_requests``'s seeded
 prompts, all arriving at t = 0, as ``serve_real`` serves them.
 
-TTFT, ITL and tokens/s are on the engine's clock: virtual time that each
-launch advances by its measured duration (``KernelExecutor``), and that
-jumps to the next arrival when the card is idle.  The KV pool is the one
-the scheduler sizes from the hardware spec (``H100`` on the card),
-allocated whole.
+On the card the kernels are built and the model warmed up
+(``warm_up``) before the first engine runs.  TTFT, ITL and tokens/s are
+on the engine's clock: virtual time that each
+launch (and each KV transfer) advances by its measured duration
+(``KernelExecutor``), and that jumps to the next arrival when the card is
+idle.  The KV pools are the ones the scheduler sizes from the hardware
+spec (``H100`` on the card), allocated whole.
 
     python -m repro_torch.launch.serve --full           # on the H100
+    python -m repro_torch.launch.serve --full --mode all  # on the H100
     python -m repro_torch.launch.serve --full --arch llama3-70b \\
         --trace lmsys --qps 0.5 --duration 20           # on the H100
     PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -63,6 +79,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import time
 from typing import Dict, List, Mapping, Optional
@@ -70,10 +87,12 @@ from typing import Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.config import (SLOConfig, ServeConfig, get_one_card_config,
-                                get_reduced_config, replace)
-from repro_torch.core.engines import HybridEngine, RapidEngine, drive
-from repro_torch.core.executor import KernelExecutor
+from repro_torch.config import (OneCardServeConfig, SLOConfig, ServeConfig,
+                                get_one_card_config, get_reduced_config,
+                                replace)
+from repro_torch.core.engines import (DisaggEngine, HybridEngine,
+                                     RapidEngine, drive)
+from repro_torch.core.executor import KernelExecutor, check_split_pools
 from repro_torch.core.request import Request
 from repro_torch.launch import serve_real
 from repro_torch.models.transformer import init_model
@@ -84,6 +103,7 @@ from repro_torch.serving.cluster import ROUTERS
 from repro_torch.serving.faults import RetryPolicy
 from repro_torch.serving.gateway import Gateway, GatewayPolicy
 from repro_torch.serving.http import run_http
+from repro_torch.serving.metrics import summarize as slo_summary
 from repro_torch.serving.traces import TRACES, generate_trace
 
 # the memory a CPU run sizes its KV pool from, in place of the card's
@@ -92,32 +112,36 @@ CPU_HBM_BYTES = 32 << 20
 
 
 # the modes a replica runs on the card, by engine
-ENGINES = {"rapid": RapidEngine, "hybrid": HybridEngine}
+ENGINES = {"rapid": RapidEngine, "hybrid": HybridEngine,
+           "disagg": DisaggEngine}
 MODES = ("rapid", "hybrid", "disagg", "all")    # the reference's --mode
+ONLINE_MODES = ("rapid", "hybrid")              # behind the gateway
 
 
-def check_mode(mode: str) -> None:
-    """Raise for a mode the port does not run on the card."""
-    if mode in ENGINES:
-        return
-    if mode in MODES:
+def check_mode(mode: str, online: bool = False) -> None:
+    """Raise for a mode the port does not run on the card: ``online``
+    (behind the gateway), split pools are not run (ROADMAP A11)."""
+    if mode not in MODES:
+        raise ValueError(f"no such mode {mode!r}; known: {list(MODES)}")
+    if online and mode not in ONLINE_MODES:
         raise NotImplementedError(
-            f"mode {mode!r}: disaggregated serving (split prefill and decode "
-            f"pools with a KV transfer) is not run on one card yet (ROADMAP "
-            f"A11); the port serves {sorted(ENGINES)}")
-    raise ValueError(f"no such mode {mode!r}; known: {list(MODES)}")
+            f"mode {mode!r}: the online server does not run disaggregated "
+            f"serving (split prefill and decode pools with a KV transfer) "
+            f"yet (ROADMAP A11); it serves {list(ONLINE_MODES)}")
 
 
 def serve_config(slo: Optional[SLOConfig] = None, mode: str = "rapid",
                  chunk: int = 512) -> ServeConfig:
     """One replica of ``mode`` on one card with ``serve_real``'s decode
-    slots and page size and a hybrid step's ``chunk``; every other field
-    at its default."""
+    slots and page size and a hybrid step's ``chunk``; split pools both
+    on the one card (``OneCardServeConfig``, ``disagg_split`` (1, 1));
+    every other field at its default.  ``mode`` "all" gives the config
+    every mode shares."""
     check_mode(mode)
-    return ServeConfig(mode=mode, chips=1,
-                       max_batch_slots=serve_real.SLOTS,
-                       page_size=serve_real.PAGE, chunk_size=chunk,
-                       slo=slo or SLOConfig())
+    return OneCardServeConfig(mode=mode, chips=1, disagg_split=(1, 1),
+                              max_batch_slots=serve_real.SLOTS,
+                              page_size=serve_real.PAGE, chunk_size=chunk,
+                              slo=slo or SLOConfig())
 
 
 def trace_requests(cfg, trace: str, qps: float, duration: float,
@@ -139,12 +163,15 @@ def serve_engine(model, requests: List[serve_real.Request],
                  arrivals: Optional[Dict[int, float]] = None) -> dict:
     """Serve ``requests`` (``serve_real.Request``s, each arriving at its
     ``arrivals`` time in seconds, or all at t = 0) through the engine of
-    ``serve.mode`` (``RapidEngine`` or ``HybridEngine``) with
-    ``executor=KernelExecutor(...)``, driven by ``drive``.  Returns the
-    engine's ``RequestRecord``s, the executor's launch log, each request's
-    tokens, the engine's requests, the decode graphs' counts, and what
-    ended reclaimed."""
-    check_mode(serve.mode)
+    ``serve.mode`` (``RapidEngine``, ``HybridEngine`` or ``DisaggEngine``)
+    with ``executor=KernelExecutor(...)``, driven by ``drive``.  Returns
+    the engine's ``RequestRecord``s, the executor's launch log and its KV
+    transfers, each request's tokens, the engine's requests, the decode
+    graphs' counts, and what ended reclaimed (both pools and the staging
+    of split pools)."""
+    if serve.mode not in ENGINES:
+        raise ValueError(f"serve_engine runs one mode of {list(ENGINES)}, "
+                         f"not {serve.mode!r}")
     serve_real.check_tokens(model.cfg)
     dev = model.tok.device
     ex = KernelExecutor(model, prompts={r.rid: r.prompt for r in requests},
@@ -159,9 +186,10 @@ def serve_engine(model, requests: List[serve_real.Request],
     t = time.perf_counter()
     records, span = drive(engine, reqs)
     wall = time.perf_counter() - t
-    kv = engine.kv
+    pools = [kv for kv in (engine.kv, engine.kv_p) if kv is not None]
     return {"records": records, "span_s": span, "wall_s": wall,
             "log": ex.log, "tokens": dict(ex.tokens),
+            "transfers": [e for e in ex.log if e["kind"] == "transfer"],
             "decode_graphs": ex.graphs.stats(),
             "requests": sorted(engine.finished + engine.rejected,
                                key=lambda r: r.rid),
@@ -170,13 +198,16 @@ def serve_engine(model, requests: List[serve_real.Request],
             "arm_modes": dict(collections.Counter(
                 a.mode for a in engine.arm.history)) if engine.arm else {},
             "pool_blocks": ex.num_blocks,
+            "prefill_pool_blocks": engine.kv_p.allocator.num_blocks
+            if engine.kv_p is not None else None,
             "spare_pages": serve.max_batch_slots,
             "pool_bytes": ex.pool_bytes,
             "mem_free_after_pool": None if mem is None else mem[0],
             "mem_total": None if mem is None else mem[1],
-            "pool_reclaimed": (kv.num_requests == 0 and
-                               kv.allocator.free_count ==
-                               kv.allocator.num_blocks),
+            "pool_reclaimed": not ex.staged and all(
+                kv.num_requests == 0 and
+                kv.allocator.free_count == kv.allocator.num_blocks
+                for kv in pools),
             "state_rows_reclaimed": ex.rows_free == ex.state_rows}
 
 
@@ -224,7 +255,7 @@ def kernel_engines(model, prompts: Mapping, tokens: Dict[int, List[int]]):
     the generated tokens in ``tokens``, so a request that moves between
     workers keeps its own."""
     def build(mode, cfg, serve, hw, loop):
-        check_mode(mode)
+        check_mode(mode, online=True)
         ex = KernelExecutor(model, prompts=prompts, serve=serve,
                             device=model.tok.device, hw=hw, tokens=tokens)
         engine = ENGINES[mode](cfg, serve, hw, loop=loop, executor=ex)
@@ -265,7 +296,7 @@ def make_gateway(model, serve: ServeConfig, prompts: Mapping, *, clock,
     ``admission``, ``retry``, ...).
 
     What it does not run is refused (``check_online``, ``check_mode``)."""
-    check_mode(serve.mode)
+    check_mode(serve.mode, online=True)
     policy = gateway_kw.get("policy")
     check_online(model.cfg, policy.checkpoint_interval if policy else 0)
     return Gateway(model.cfg, serve, modes=[serve.mode] * workers, hw=hw,
@@ -383,7 +414,8 @@ def stamps_late(net: List[float]) -> Optional[str]:
 
 
 def summarize(result: dict) -> dict:
-    """TTFT/ITL/throughput on the engine's clock, launches by kind, the
+    """TTFT/ITL/throughput on the engine's clock, launches by kind (KV
+    transfers among them), the KV transfers (``transfer_summary``), the
     ``f_decode`` the fused launches ran with, the decode graphs and the
     mean host time of the decode launches by how they ran ("capture",
     "replay", or "eager" on the CPU), the engine's own host time per wake
@@ -438,20 +470,57 @@ def summarize(result: dict) -> dict:
             "tokens_met": all(len(result["tokens"].get(rid, ())) == n
                               for rid, n in result["max_new"].items()
                               if rid not in rejected),
+            "transfers": transfer_summary(result["transfers"]),
             "pool_blocks": result["pool_blocks"],
+            "prefill_pool_blocks": result["prefill_pool_blocks"],
             "pool_bytes": result["pool_bytes"],
             "mem_free_after_pool": result["mem_free_after_pool"],
             "pool_reclaimed": result["pool_reclaimed"],
             "state_rows_reclaimed": result["state_rows_reclaimed"]}
 
 
+def transfer_summary(transfers: List[dict]) -> Optional[dict]:
+    """A run's KV transfers: how many, their tokens and staged bytes, the
+    measured ms a transfer (mean, median, max), the bytes staged over the
+    measured time (GB/s: each staged byte was read once and written
+    once), and beside them the perfmodel's charge for the same transfers
+    (``kv_transfer_bytes`` over ``kv_transfer_gbps``).  None when there
+    was none."""
+    if not transfers:
+        return None
+    ms = [e["ms"] for e in transfers]
+    priced = [e["priced_ms"] for e in transfers]
+    nbytes = sum(e["bytes"] for e in transfers)
+    return {"count": len(transfers),
+            "tokens": sum(e["tokens"] for e in transfers),
+            "bytes": nbytes,
+            "ms_mean": float(np.mean(ms)), "ms_median": float(np.median(ms)),
+            "ms_max": max(ms),
+            "gb_per_s": nbytes / (sum(ms) / 1e3) / 1e9 if sum(ms) else None,
+            "priced_ms_mean": float(np.mean(priced)),
+            "priced_ms_max": max(priced)}
+
+
+def mode_line(mode: str, result: dict, slo: SLOConfig) -> str:
+    """One mode's line in the reference launcher's format
+    (``repro/launch/serve.py``), on the engine's clock."""
+    s = slo_summary(result["records"], slo, result["span_s"])
+    return (f"{mode:7s} thpt={s['throughput_tok_s']:9.1f} tok/s  "
+            f"goodput={s['goodput_req_s']:6.2f} req/s  "
+            f"ttft_p95={s['ttft_p95_s']:7.2f}s  "
+            f"itl_p95={s['itl_p95_s'] * 1e3:6.0f}ms  "
+            f"slo_ok={s['slo_attainment'] * 100:5.1f}%")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--mode", default="rapid", choices=MODES,
-                    help="rapid (the paper's engine) or hybrid (chunked "
-                    "prefill, the hybrid-batching baseline); disagg and all "
-                    "are not run on one card yet (ROADMAP A11)")
+                    help="rapid (the paper's engine), hybrid (chunked "
+                    "prefill, the hybrid-batching baseline), disagg (split "
+                    "prefill and decode pools on the card, a KV transfer "
+                    "between them), or all three in turn; online, only "
+                    "rapid and hybrid")
     ap.add_argument("--chunk", type=int, default=512,
                     help="hybrid: the most prompt tokens of one request in "
                     "a step")
@@ -474,7 +543,7 @@ def main(argv=None):
     ap.add_argument("--serve", default="offline", choices=["offline", "http"],
                     help="'http' starts the online gateway (streaming "
                     "NDJSON API, heartbeats, failover, cancellation) over "
-                    "one RAPID worker, instead of serving a list of "
+                    "one worker of --mode, instead of serving a list of "
                     "requests")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
@@ -506,13 +575,15 @@ def main(argv=None):
         get_reduced_config(args.arch)
     if args.dtype:
         cfg = replace(cfg, dtype=args.dtype)
-    check_mode(args.mode)
+    check_mode(args.mode, online=args.serve == "http")
     try:
         serve_real.check_tokens(cfg)
         if args.serve == "http":
             check_online(cfg, args.checkpoint_interval)
     except NotImplementedError as e:
         ap.error(str(e))
+    if args.mode in ("disagg", "all"):
+        check_split_pools(cfg)
 
     device = serve_real.resolve_device(args.device)
     hw = H100 if device.type == "cuda" else \
@@ -533,15 +604,30 @@ def main(argv=None):
                                         (128, 2048), (16, 64))
     else:
         reqs = serve_real.make_requests(cfg, args.requests, args.seed)
-    summary = summarize(serve_engine(model, reqs,
-                                     serve_config(mode=args.mode,
-                                                  chunk=args.chunk),
-                                     hw=hw, arrivals=arrivals))
-    print(json.dumps(summary))
-    if not (summary["pool_reclaimed"] and summary["state_rows_reclaimed"]
-            and summary["tokens_met"]):
-        raise RuntimeError("a request's tokens were not all served, or the "
-                           "KV pool or the state rows were not reclaimed")
+    if device.type == "cuda":
+        warm_up(model)          # no mode's launches wait for a build
+    serve = serve_config(mode=args.mode, chunk=args.chunk)
+    modes = list(ENGINES) if args.mode == "all" else [args.mode]
+    summaries = {}
+    for mode in modes:
+        result = serve_engine(model, reqs, dataclasses.replace(serve,
+                                                               mode=mode),
+                              hw=hw, arrivals=arrivals)
+        summaries[mode] = summary = summarize(result)
+        if args.mode == "all":
+            print(mode_line(mode, result, serve.slo), flush=True)
+        if not (summary["pool_reclaimed"] and
+                summary["state_rows_reclaimed"] and summary["tokens_met"]):
+            raise RuntimeError(
+                f"{mode}: a request's tokens were not all served, or the KV "
+                f"pools or the state rows were not reclaimed")
+        # the engine and its loop form a cycle: its pools go at a
+        # collection, before the next mode allocates its own
+        del result
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    print(json.dumps(summaries if args.mode == "all" else summary))
     return 0
 
 

@@ -259,10 +259,17 @@ def test_what_it_does_not_run_raises(case, granite):
     view = eng._view(Wake("arrival"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if case == "disagg_engine":
-            KernelExecutor(granite[0], prompts={}, serve=eng.serve,
-                           device="cpu", hw=HW).bind(
-                DisaggEngine(granite[0].cfg, eng.serve, HW))
+            # split pools run (tests/test_torch_disagg.py); a model with
+            # recurrent layers under them does not
+            cfg = replace(get_reduced_config("jamba-1.5-large-398b"),
+                          dtype="float32", ffn_pattern=("dense",))
+            serve = serve_mod.serve_config(mode="disagg")
+            KernelExecutor(tf.init_model(cfg, device="cpu"), prompts={},
+                           serve=serve, device="cpu", hw=HW).bind(
+                DisaggEngine(cfg, serve, HW))
         elif case == "transfer":
+            # a colocated engine's prefill writes its decode pool: it has
+            # no KV transfer
             ex.transfer_seconds(Request(0, 0.0, 8, 4), eng.serve)
         elif case == "price_batch":
             ex.price_batch([StepPlan()], [view])

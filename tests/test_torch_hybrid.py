@@ -366,11 +366,17 @@ def test_hybrid_and_rapid_serve_the_same_tokens(granite):
 
 @pytest.mark.parametrize("mode", ["disagg", "all"])
 def test_serve_refuses_disagg_modes(mode):
+    """The online server refuses split pools (ROADMAP A11); offline they
+    run (tests/test_torch_disagg.py), on the one-card split."""
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         serve_mod.main(["--device", "cpu", "--dtype", "float32", "--mode",
-                        mode])
+                        mode, "--serve", "http"])
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        serve_mod.serve_config(mode=mode)
+        serve_mod.kernel_engines(None, {}, {})(
+            mode, get_reduced_config("granite-8b"),
+            serve_mod.serve_config(mode=mode), HW, EventLoop())
+    serve = serve_mod.serve_config(mode=mode)
+    assert (serve.mode, serve.chips, serve.disagg_split) == (mode, 1, (1, 1))
 
 
 def test_serve_main_hybrid_on_cpu(capsys):
